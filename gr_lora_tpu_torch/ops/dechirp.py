@@ -1,0 +1,90 @@
+"""Dechirp + zoom spectra for the Pyramid lattice and the preamble scan.
+
+Twin of the pyramid parts of gr_lora_tpu/ops/dechirp.py (reference hot
+loops: demod_impl.cc:329-359, pyramid_demod_impl.cc:569-603).
+
+Fold landmine (SURVEY.md §7, gr_lora_tpu/ops/dechirp.py:10-26): the
+reference pyramid folds mags[:K] + mags[K:2K], which is the top band only
+at fs/bw = 2.  The port folds mags[:K] + mags[F-K:] for ALL p, exactly as
+the JAX package does: bit-identical to the reference at p = 2 and
+functional at p > 2.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from gr_lora_tpu.config import LoraConfig
+from .chirp import chirp_tables
+from .cplx import cmag
+from .dft import ZoomDft
+
+
+@lru_cache(maxsize=None)
+def kaiser_window(num_samples: int, beta: float) -> np.ndarray:
+    """Kaiser window as built by gr::fft::window::build(WIN_KAISER, n, beta)
+    (reference: demod_impl.cc:121, pyramid_demod_impl.cc:98)."""
+    return np.kaiser(num_samples, beta).astype(np.float32)
+
+
+def up_plan(sf: int, p: int, fft_factor: int) -> ZoomDft:
+    """Dechirp data/preamble upchirps: multiply by the +phi chirp (the
+    reference's 'downchirp' table, demod_impl.cc:329); bins [0, K) and
+    the top K.  Built on the CPU."""
+    _, down = chirp_tables(sf, p)
+    n = p << sf
+    k = fft_factor << sf
+    return ZoomDft(n, fft_factor * n, k, k, down)
+
+
+def pyramid_plan(sf: int, p: int, fft_factor: int, beta: float) -> ZoomDft:
+    """Pyramid needs bins [0, K) + top K, both unwindowed and
+    Kaiser-windowed (two variants of one plan).  Built on the CPU."""
+    _, down = chirp_tables(sf, p)
+    n = p << sf
+    k = fft_factor << sf
+    if 2 * k > fft_factor * n:
+        raise ValueError("pyramid fold requires p >= 2 (reference uses 8)")
+    mods = np.stack([down, down * kaiser_window(n, beta)])
+    return ZoomDft(n, fft_factor * n, k, k, mods)
+
+
+def up_bands(window: torch.Tensor, cfg: LoraConfig):
+    """Window(s) [..., N, 2] -> up-chirp dechirped bands (lo, hi), each
+    [..., K, 2] (the preamble scan's transform)."""
+    plan = up_plan(cfg.sf, cfg.p, cfg.fft_factor).to(window.device)
+    return plan(window)
+
+
+def pyramid_spectra(frames: torch.Tensor, cfg: LoraConfig):
+    """Per-hop dense spectra for the pyramid demod, batched over frames.
+
+    frames [..., N, 2] -> (fft_add, fft_add_w, h_single), each [..., K]:
+    - fft_add:   unwindowed, mags[:K] + mags[F-K:]
+    - fft_add_w: Kaiser-windowed, same fold          (pyramid_demod_impl.cc:603)
+    - h_single:  max(mags[:K], mags[F-K:])           (pyramid_demod_impl.cc:269)
+    """
+    plan = pyramid_plan(cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta))
+    return fold_spectra(plan.to(frames.device)(frames))
+
+
+def fold_spectra(bands):
+    """((lo, hi), (lo_w, hi_w)) -> (fft_add, fft_add_w, h_single)."""
+    (lo, hi), (lo_w, hi_w) = bands
+    mlo, mhi = cmag(lo), cmag(hi)
+    return mlo + mhi, cmag(lo_w) + cmag(hi_w), torch.maximum(mlo, mhi)
+
+
+def frame_signal(iq: torch.Tensor, frame_len: int, hop: int,
+                 num_frames: int) -> torch.Tensor:
+    """Strided frames [..., num_frames, frame_len, 2] of IQ [..., T, 2],
+    zero-padded past T."""
+    need = (num_frames - 1) * hop + frame_len
+    pad = need - iq.shape[-2]
+    if pad > 0:
+        iq = torch.nn.functional.pad(iq, (0, 0, 0, pad))
+    fr = iq[..., :need, :].unfold(-2, frame_len, hop)   # [..., H, 2, L]
+    return fr.transpose(-1, -2)

@@ -1,0 +1,158 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: every test skips (decided inside the fixture, never at
+import) where ``torch.cuda.is_available()`` is false.  On a machine with
+an NVIDIA GPU and nvcc, run ``python -m pytest --noconftest
+tests/test_torch_kernels_cuda.py`` (the file imports no JAX; the repo's
+conftest.py does, and such a machine need not have it).
+
+Tolerances: K1's plain version is the same bf16-operand / f32-accumulate
+class in another summation order (heights rtol 1e-3; a peak may differ
+only where an f32 tie decides it, see peak_epilogue.compare_peaks).  K2
+and the epilogue round as their plain versions do and must equal them
+exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gr_lora_tpu import LoraConfig
+from gr_lora_tpu.core.codec import encode
+from gr_lora_tpu_torch.models.modulator import modulate
+from gr_lora_tpu_torch.models.pyramid import num_hops_for
+from gr_lora_tpu_torch.ops.cplx import to_ri
+from gr_lora_tpu_torch.ops.overlap_dft import spectra_from_chunks
+from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+from gr_lora_tpu_torch.ops.peak_epilogue import (compare_peaks, launch_topm,
+                                                 peaks_plain)
+from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+pytestmark = pytest.mark.cuda
+
+PDU1 = "0630f0010203040506050801"
+PDU2 = "0530000707070707e76b01"
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda:0")
+
+
+def _cfg(sf, ff=8, p=2):
+    return LoraConfig(sf=sf, cr=1, crc=True, ldr=(1 << sf) / 125e3 > 16e-3,
+                      explicit_header=True, payload_len=4, p=p,
+                      fft_factor=ff, threshold=5.0)
+
+
+def _lanes(cfg, lanes, seed):
+    """[lanes, T, 2]: one packet per lane at a lane-specific offset."""
+    n = cfg.num_samples
+    pkt = 0.2 * modulate(encode(bytes([1, 2, 3, cfg.sf]), cfg), cfg,
+                         pad_front=0, pad_back=0)
+    total = len(pkt) + 6 * n
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(lanes):
+        iq = (0.01 * (rng.standard_normal(total)
+                      + 1j * rng.standard_normal(total))).astype(np.complex64)
+        o = n + i * 37
+        iq[o:o + len(pkt)] += pkt
+        out.append(to_ri(iq))
+    return np.stack(out), total
+
+
+@pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8), (7, 2)])
+def test_rdft_kernel_matches_plain(dev, sf, ff):
+    cfg = _cfg(sf, ff)
+    iq, total = _lanes(cfg, 3, sf)
+    nh = num_hops_for(cfg, total)
+    mod = RdftPeaks(cfg, nh, 8).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    assert mod.launches == 1
+    plain = mod.plain(x)
+    _, faw, _ = mod.spectra_plain(x)
+    assert plain[3].any()
+    compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("sf,ff,p", [(10, 8, 2), (12, 8, 2), (10, 1, 4)])
+def test_overlap_kernel_matches_plain(dev, sf, ff, p):
+    """The kernel rounds every operation as the plain version does, in its
+    order: folds and peaks are equal bit for bit.  Includes p = 4, where
+    the fold's hi side c + F - K is not c + K (the JAX kernel's tile
+    arithmetic assumes F = 2K)."""
+    cfg = _cfg(sf, ff, p)
+    iq, total = _lanes(cfg, 2, sf)
+    nh = min(num_hops_for(cfg, total), 128)
+    mod = OverlapPeaks(cfg, nh, 8).to(dev)
+    g = mod.plan.chunk_dft(torch.from_numpy(iq).to(dev), nh)
+    for a, b in zip(mod.spectra_from_chunks(g),
+                    spectra_from_chunks(g, mod.plan, nh)):
+        assert torch.equal(a, b), float(torch.max(torch.abs(a - b)))
+    kern = mod.from_chunks(g)
+    assert mod.launches == 1
+    plain = mod.plain_from_chunks(g)
+    assert plain[3].any()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_topm_kernel_equals_plain(dev, m):
+    """Random folds with many peaks, exact ties and peaks on the cyclic
+    edges: the kernel epilogue is the plain one, bit for bit."""
+    rng = np.random.default_rng(m)
+    faw = rng.random((37, 1024)).astype(np.float32) * 10
+    faw[:, ::97] = 9.5                       # equal values, distinct bins
+    faw[:, 0] = 12.0                         # wrap-around neighbours
+    faw[:, -1] = 11.0
+    fa = rng.random((37, 1024)).astype(np.float32)
+    hs = rng.random((37, 1024)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (fa, faw, hs)]
+    kern = launch_topm(*t, 5.0, m)
+    plain = peaks_plain(*t, 5.0, m)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_kernel_wrappers_reject_bad_input(dev):
+    cfg = _cfg(7)
+    mod = RdftPeaks(cfg, 16, 8).to(dev)
+    with pytest.raises(ValueError):
+        mod(torch.zeros((4096, 2), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        launch_topm(*(torch.zeros(4, 64, device=dev) for _ in range(3)),
+                    5.0, 17)
+
+
+def test_gateway_on_card_decodes_golden(dev):
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+    base = LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
+                      payload_len=8, p=2, fft_factor=8, threshold=5.0)
+    gw = TriggeredPyramidGateway(base, 2, sfs=(8,), backend="fused",
+                                 max_payload_len=16,
+                                 scan_chunk_samples=1 << 16, device=dev)
+    cfg = gw.sf_states[8].cfg
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg,
+                         pad_front=0, pad_back=0)
+    off2 = 16 * n + 4 * n // 8 + 204
+    coll = np.zeros(off2 + len(p2) + 1, np.complex64)
+    coll[:len(p1)] += p1
+    coll[off2:off2 + len(p2)] += p2
+    iq = np.zeros((2, 150_000), np.complex64)
+    iq[:, 5000:5000 + len(coll)] += coll
+    pkts = gw.feed(torch.from_numpy(to_ri(iq)).to(dev)) + gw.flush()
+    got = {(p.channel, bytes(p.result.payload).hex()) for p in pkts
+           if p.result is not None and p.result.ok}
+    for c in range(2):
+        assert (c, PDU1) in got and (c, PDU2) in got, got
+    assert gw.lattice(8).launches > 0

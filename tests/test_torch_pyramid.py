@@ -1,0 +1,50 @@
+"""The port's pyramid_demodulate on the README two-packet collision.
+
+The collision is the one of tests/test_pyramid.py (sf 8, fs/bw 2,
+fft_factor 8, threshold 5): both golden PDUs must decode byte-exact, and
+under the fused backend the port's symbol vectors must equal the JAX
+package's.
+"""
+
+import numpy as np
+import pytest
+
+from gr_lora_tpu.core.codec import decode
+from gr_lora_tpu.models.pyramid import pyramid_demodulate as jax_demod
+from gr_lora_tpu_torch.models.pyramid import pyramid_demodulate
+from test_pyramid import CFG, PDU_1, PDU_2, _N, _collision
+
+OFF2 = 1000 + 16 * _N + 4 * _N // 8 + 204   # deep overlap, distinct phase
+
+
+def _pdus(syms):
+    return {bytes(r.payload).hex() for r in (decode(s, CFG) for s in syms)
+            if r.ok}
+
+
+def test_fused_golden_pdus_and_jax_symbols():
+    iq = _collision(OFF2)
+    ours = pyramid_demodulate(iq, CFG, backend="fused")
+    assert {PDU_1, PDU_2} <= _pdus(ours)
+    ref = jax_demod(iq, CFG, backend="fused")
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        assert np.array_equal(a, b), (a, b)
+
+
+@pytest.mark.parametrize("backend", ["xla", "fast"])
+def test_dense_backends_golden_pdus(backend):
+    assert {PDU_1, PDU_2} <= _pdus(
+        pyramid_demodulate(_collision(OFF2), CFG, backend=backend))
+
+
+def test_noisy_collision_fused():
+    off2 = 1000 + 18 * _N + 2 * _N // 8 + 238
+    iq = _collision(off2, noise=0.005, seed=3)
+    assert {PDU_1, PDU_2} <= _pdus(pyramid_demodulate(iq, CFG,
+                                                      backend="fused"))
+
+
+def test_python_tracker_not_ported():
+    with pytest.raises(NotImplementedError):
+        pyramid_demodulate(_collision(OFF2), CFG, use_native=False)

@@ -1,0 +1,147 @@
+"""The port's NumPy twins and plan constants equal the JAX package's own.
+
+gr_lora_tpu_torch keeps its own copies of the NumPy code that sits behind
+JAX imports (chirp tables, the modulator, the overlap plan constants) and
+builds every kernel's plan constants itself; these tests pin each one
+equal to the original, so both packages compute from the same numbers.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gr_lora_tpu import LoraConfig
+from gr_lora_tpu.dist.collision_gateway import \
+    TriggeredPyramidGateway as JaxGateway
+from gr_lora_tpu.dist.pyramid_gateway import _pack_peaks as jax_pack_peaks
+from gr_lora_tpu.models import modulator as jmod
+from gr_lora_tpu.ops import chirp as jchirp
+from gr_lora_tpu.ops import overlap_dft as jov
+from gr_lora_tpu.ops import pallas_rdft as jrdft
+from gr_lora_tpu_torch.dist.collision_gateway import TriggeredPyramidGateway
+from gr_lora_tpu_torch.dist.pyramid_gateway import _pack_peaks, _unpack_peaks
+from gr_lora_tpu_torch.dist.triggered import make_preamble_scan
+from gr_lora_tpu_torch.models import modulator as tmod
+from gr_lora_tpu_torch.ops import chirp as tchirp
+from gr_lora_tpu_torch.ops.overlap_dft import OverlapPlan
+from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+GRID = [(sf, p) for sf in range(7, 13) for p in (2, 8)]
+
+
+def _cfg(sf, p=2, ff=8):
+    return LoraConfig(sf=sf, cr=1, crc=True, ldr=(1 << sf) / 125e3 > 16e-3,
+                      explicit_header=True, payload_len=8, p=p,
+                      fft_factor=ff, threshold=5.0)
+
+
+@pytest.mark.parametrize("sf,p", GRID)
+def test_chirp_tables_and_symbol_chirp(sf, p):
+    for a, b in zip(tchirp.chirp_tables(sf, p), jchirp.chirp_tables(sf, p)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for sym in (0, 1, (1 << sf) - 1, 37 % (1 << sf)):
+        assert np.array_equal(tchirp.symbol_chirp(sym, sf, p),
+                              jchirp.symbol_chirp(sym, sf, p))
+
+
+@pytest.mark.parametrize("sf,p", GRID)
+def test_modulate_and_packet_duration(sf, p):
+    cfg = _cfg(sf, p)
+    syms = np.random.default_rng(sf * 10 + p).integers(0, 1 << sf, 9)
+    a = tmod.modulate(syms, cfg)
+    b = jmod.modulate(syms, cfg)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(tmod.modulate(syms, cfg, pad_front=0, pad_back=0),
+                          jmod.modulate(syms, cfg, pad_front=0, pad_back=0))
+    for ns in (0, 9, 40):
+        assert tmod.packet_duration(ns, cfg) == jmod.packet_duration(ns, cfg)
+    assert tmod.NUM_PREAMBLE_CHIRPS == jmod.NUM_PREAMBLE_CHIRPS
+
+
+@pytest.mark.parametrize("sf,ff", [(7, 2), (7, 8), (8, 8), (9, 8)])
+def test_rdft_plan_constants(sf, ff):
+    cfg = _cfg(sf, ff=ff)
+    mod = RdftPeaks(cfg, 8)
+    ref_w = np.asarray(jrdft._rdft_weights(cfg))
+    assert mod.w.dtype == torch.bfloat16 and mod.w.shape == ref_w.shape
+    assert np.array_equal(mod.w.view(torch.int16).numpy().view(np.uint16),
+                          ref_w.view(np.uint16))
+    assert np.array_equal(mod.consts.numpy(), np.asarray(jrdft._consts(cfg)))
+
+
+@pytest.mark.parametrize("sf,p,ff", [(9, 2, 8), (10, 2, 8), (12, 2, 8),
+                                     (8, 8, 2)])
+def test_overlap_plan_constants(sf, p, ff):
+    ref = jov.overlap_plan(sf, p, ff, 25.0)
+    plan = OverlapPlan(sf, p, ff, 25.0)
+    assert np.array_equal(plan.rho.numpy(), ref.rho)
+    assert plan.sigma_list == ref.sigma
+    assert plan.sigma.tolist() == list(ref.sigma)
+    assert plan.shift_list == ref.win_shifts
+    f = ff * (p << sf)
+    assert [s % f for s in plan.win_shifts.tolist()] == list(ref.win_shifts)
+    assert np.array_equal(plan.win_taps.numpy(), ref.win_taps)
+
+
+@pytest.mark.parametrize("sf", [7, 12])
+def test_scan_dechirp_constants(sf):
+    cfg = _cfg(sf, ff=2)
+    scan = make_preamble_scan(cfg, 64)
+    _, down = jchirp.chirp_tables(sf, cfg.p)
+    mod = scan.plan.mod.numpy()
+    assert mod.shape == (1, cfg.num_samples, 2)
+    assert np.array_equal(mod[0, :, 0], down.real)
+    assert np.array_equal(mod[0, :, 1], down.imag)
+
+
+@pytest.mark.parametrize("grace", [0, 8])
+def test_gateway_window_sizing_matches_jax(grace):
+    """Window span, lead, suppression, scan chunking and hop blocking per
+    SF equal the JAX gateway's at the north-star configuration."""
+    base = _cfg(8)
+    kw = dict(max_payload_len=16, grace=grace)
+    ours = TriggeredPyramidGateway(base, 4, backend="fused", **kw)
+    ref = JaxGateway(base, 4, backend="fused", **kw)
+    for sf, st in ours.sf_states.items():
+        rs = ref.sf_states[sf]
+        assert (st.cfg, st.win_hops, st.lead, st.suppress, st.scan_windows) \
+            == (rs.cfg, rs.win_hops, rs.lead, rs.suppress, rs.scan_windows)
+        assert ours._win_samples(st) == ref._win_samples(rs)
+        assert ours._lattice_block_hops(st) == ref._lattice_block_hops(rs)
+    assert ours._ring.cap == ref._ring.cap and ours._base == ref._base
+
+
+def test_pack_peaks_bits_match_jax():
+    rng = np.random.default_rng(4)
+    shape = (3, 5, 8)
+    bins = rng.integers(0, 1 << 15, shape).astype(np.int32)
+    h = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+    hs = (np.abs(rng.standard_normal(shape)) * 7).astype(np.float32)
+    valid = rng.random(shape) < 0.5
+    ours = _pack_peaks(tuple(torch.from_numpy(x) for x in
+                             (bins, h, hs, valid))).numpy()
+    ref = np.asarray(jax_pack_peaks(tuple(jnp.asarray(x) for x in
+                                          (bins, h, hs, valid))))
+    assert ours.dtype == np.int32
+    assert np.array_equal(ours.view(np.uint32), ref)
+    ub, uh, uhs, uv = _unpack_peaks(ours)
+    assert np.array_equal(ub, bins) and np.array_equal(uv, valid)
+    np.testing.assert_allclose(uh, h, rtol=2 ** -8)
+    np.testing.assert_allclose(uhs, hs, rtol=2 ** -8)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            "import gr_lora_tpu_torch.dist.collision_gateway\n"
+            "import gr_lora_tpu_torch.models.pyramid\n"
+            "import gr_lora_tpu_torch.ops._build\n"
+            "assert 'jax' not in sys.modules, sorted(\n"
+            "    m for m in sys.modules if m.startswith('jax'))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
