@@ -1,28 +1,43 @@
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero without the
-final ``ok`` line):
+Phases (each prints one line or more; any failure exits non-zero without
+the final ``ok`` line):
 
 1. device  — a CUDA device is required; prints nvidia-smi's name and
    power limit;
-2. build   — compiles ``gr_lora_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
+2. build   — compiles ``gr_lora_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
+   one nvcc per source, all at once;
 3. parity  — each hand-written kernel against its plain PyTorch version
-   on the card at main-path shapes (K1 rDFT peaks at SF8/SF9, K2 overlap
-   peaks at SF10/SF12, 8 event lanes), with CUDA-event times of both.  K1
-   sums bf16 products in another order than its plain version: the same
-   peaks up to f32 ties, heights within rtol 1e-3.  K2 rounds as its
-   plain version does: equal peaks and heights;
-4. main    — the north-star gateway: 64 channels x SF7-12 detection-gated
-   Pyramid collision decoding (TriggeredPyramidGateway, backend "fused")
-   fed the golden SF8 collision on every channel plus one single per
-   channel, twice, then flushed; asserts the decodes and that both kernels
-   ran on the main path.
+   on the card at main-path shapes, with CUDA-event times of both:
+   K1 rDFT peaks at SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8 event
+   lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
+   spectra, K4 direct peaks and K5 overlap spectra on one always-on block
+   of 16 channels x 2048 hops at SF8 (K5 also on the SF12 block of the
+   multi-SF gateway).  Tolerances: K1, K3, K4b and K4 sum bf16 products
+   in another order than their plain versions — the same peaks up to f32
+   ties, heights within rtol 1e-3, and the dense K3 / K4b spectra within
+   1e-4 of the largest value; K2 and K5 round as their plain versions
+   do: equal bit for bit;
+4. main    — the north-star gateway: 64 channels x SF7-12
+   detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
+   backend "fused": K1 and K2) fed the golden SF8 collision on every
+   channel plus one single per channel, twice, then flushed;
+5. always-on — the always-on gateway (PyramidGateway) at the
+   rx_file_collision.grc point, 16 channels, 2048-hop blocks, once per
+   kernel backend ("rdft": K3, "direct": K4b, "fused_direct": K4,
+   "fastp": K5), fed two passes of a stream whose collisions straddle
+   block boundaries in chunks, then flushed;
+6. multi-SF — MultiSFPyramidGateway, 16 channels x SF7-12, backend
+   "fastp" (K5 at every SF), fed the golden collision and one single at
+   a round-robin SF per channel.
 
-The line before the last is a JSON object with every kernel's route,
-source, launches, max |delta| against its plain version and times; the
-last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+Phases 4-6 each assert every decode and that their kernels ran: every
+launch count is set to 0 just before a phase and read just after.  The
+line before the last is a JSON object with every kernel's route, source,
+launches, max |delta| against its plain version and times; the last line
+is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +54,12 @@ CHANNELS = 64
 T = 1 << 20                      # air samples per channel per feed
 PDU1 = "0630f0010203040506050801"
 PDU2 = "0530000707070707e76b01"
+#: The always-on gateway (bench.py --mode pyramid_gateway at 16 channels).
+AO_CHANNELS = 16
+AO_BLOCK_HOPS = 2048
+AO_BACKENDS = {"rdft": "rdft_spectra", "direct": "direct_spectra",
+               "fused_direct": "direct_peaks", "fastp": "overlap_spectra"}
+AO_CHUNK = 50_000                # feed chunk: blocks are 131 072 samples
 
 
 def fail(msg: str) -> None:
@@ -53,11 +74,11 @@ def base_config():
                       payload_len=8, p=2, fft_factor=8, threshold=5.0)
 
 
-def north_star_fixture(cfgs: dict):
+def north_star_fixture(cfgs: dict, channels: int = CHANNELS, t: int = T):
     """The north-star fixture (the JAX package's bench_north_star):
     noise 0.003 from default_rng(0), the golden SF8 collision on every
     channel, one single at SF SFS[c % 6] per channel.  Returns
-    (iq float32 [C, T, 2], {channel: (single payload hex, offset)})."""
+    (iq float32 [C, t, 2], {channel: (single payload hex, offset)})."""
     from gr_lora_tpu.core.codec import encode
     from gr_lora_tpu_torch.models.modulator import modulate
     from gr_lora_tpu_torch.ops.cplx import to_ri
@@ -72,23 +93,57 @@ def north_star_fixture(cfgs: dict):
                                    cfgs[sf], pad_front=0, pad_back=0)
                for sf in SFS}
     rng = np.random.default_rng(0)
-    iq = (0.003 * (rng.standard_normal((CHANNELS, T))
-                   + 1j * rng.standard_normal((CHANNELS, T)))
+    iq = (0.003 * (rng.standard_normal((channels, t))
+                   + 1j * rng.standard_normal((channels, t)))
           ).astype(np.complex64)
     off2_rel = 16 * n8 + 4 * n8 // 8 + 204
     single = {}
-    for c in range(CHANNELS):
-        base_off = (4000 + c * 4999) % (T // 2)
+    for c in range(channels):
+        base_off = (4000 + c * 4999) % (t // 2)
         iq[c, base_off:base_off + len(p1)] += p1
         o2 = base_off + off2_rel
         iq[c, o2:o2 + len(p2)] += p2
         sf = SFS[c % len(SFS)]
         s = singles[sf]
-        if len(s) + 1 < T - T * 2 // 3:
-            so = T * 2 // 3 + (c * 2999) % (T - T * 2 // 3 - len(s) - 1)
+        if len(s) + 1 < t - t * 2 // 3:
+            so = t * 2 // 3 + (c * 2999) % (t - t * 2 // 3 - len(s) - 1)
             iq[c, so:so + len(s)] += s
             single[c] = (bytes([sf, 1, 2, sf]).hex(), so)
     return to_ri(iq), single
+
+
+def always_on_fixture(cfg, blocks: int = 4):
+    """bench.py --mode pyramid_gateway's fixture stretched over ``blocks``
+    2048-hop blocks: noise 0.01 from default_rng(0), and per channel the
+    golden collision at bench.py's offset in block 0 plus a second one
+    straddling the boundary of blocks 1 and 2.  Returns (iq float32
+    [16, T, 2], the two collisions' first-packet offsets per channel)."""
+    from gr_lora_tpu.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    n = cfg.num_samples
+    hop = n // 8
+    block = AO_BLOCK_HOPS * hop + (n - hop)
+    t = blocks * AO_BLOCK_HOPS * hop + (n - hop)
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg,
+                         pad_front=0, pad_back=0)
+    rng = np.random.default_rng(0)
+    iq = (0.01 * (rng.standard_normal((AO_CHANNELS, t))
+                  + 1j * rng.standard_normal((AO_CHANNELS, t)))
+          ).astype(np.complex64)
+    offsets = {}
+    for c in range(AO_CHANNELS):
+        base = (1000 + c * 997) % max(block - len(p1) - 17 * n, 1)
+        straddle = 2 * AO_BLOCK_HOPS * hop - len(p1) // 2 + c * 997
+        for b in (base, straddle):
+            off2 = b + 16 * n + 4 * n // 8 + 204
+            iq[c, b:b + len(p1)] += p1
+            iq[c, off2:off2 + len(p2)] += p2
+        offsets[c] = (base, straddle)
+    return to_ri(iq), offsets
 
 
 def _compare(kern, plain, faw_plain, rtol, threshold):
@@ -103,6 +158,17 @@ def _compare(kern, plain, faw_plain, rtol, threshold):
                              threshold=threshold)
     except AssertionError as e:
         fail(f"kernel differs from its plain version: {e}")
+
+
+def _ok_pdus(pkts) -> dict:
+    """{channel: {(sf, payload hex)}} of the packets that decoded with
+    a CRC pass."""
+    got = {}
+    for p in pkts:
+        if p.result is not None and p.result.ok and p.result.crc_ok:
+            got.setdefault(p.channel, set()).add(
+                (p.sf, bytes(p.result.payload).hex()))
+    return got
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -158,7 +224,7 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
                            gw._win_samples(st))
         kern = mod(x)
         plain = mod.plain(x)
-        _, faw, _ = mod.spectra_plain(x)
+        _, faw, _ = mod.front.plain(x)
         torch.cuda.synchronize()
         err, moved = _compare(kern, plain, faw, 1e-3, st.cfg.threshold)
         ms = _time_ms(lambda: mod(x), 5)
@@ -223,22 +289,13 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
     torch.cuda.synchronize()
     flush_s = time.perf_counter() - t0
     launches = {k: sum(m.launches for m in ms) for k, ms in mods.items()}
-
-    def ok_pdus(pkts):
-        got = {}
-        for p in pkts:
-            if p.result is not None and p.result.ok and p.result.crc_ok:
-                got.setdefault(p.channel, set()).add(
-                    (p.sf, bytes(p.result.payload).hex()))
-        return got
-
     for i, pk in enumerate(feeds):
-        got = ok_pdus(pk)
+        got = _ok_pdus(pk)
         missing = [c for c in range(channels)
                    if not {(8, PDU1), (8, PDU2)} <= got.get(c, set())]
         if missing:
             fail(f"feed {i + 1}: golden PDUs missing on channels {missing}")
-    every = ok_pdus(feeds[0] + feeds[1] + tail)
+    every = _ok_pdus(feeds[0] + feeds[1] + tail)
     lost = [c for c, (hx, _) in singles.items()
             if not any(sf == SFS[c % len(SFS)] and hx in h
                        for sf, h in every.get(c, set()))]
@@ -261,6 +318,225 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
           f"launches={launches}")
     return launches
+
+
+def _dense_check(name, kern, plain, rtol):
+    """Dense (fa, faw, hs) kernel vs plain: max |delta| <= rtol x the
+    largest plain value (rtol 0: equal bit for bit).  Returns max |d|."""
+    import torch
+
+    err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
+    scale = max(float(b.abs().max()) for b in plain)
+    if rtol == 0.0:
+        if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+            fail(f"{name} differs from its plain version (max |d| {err})")
+    elif not err <= rtol * scale:
+        fail(f"{name} differs from its plain version: max |d| {err} > "
+             f"{rtol} x {scale}")
+    return err
+
+
+def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
+    """Phase 3, dense kernels: K3, K4b, K4 and K5 against their plain
+    versions on one always-on block [16, 2048 hops] at SF8 (K5 also on
+    the multi-SF gateway's SF12 block of 128 hops).  Each comparison
+    frees its tensors before the next (the plain direct product alone is
+    [32768, 16384] f32)."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
+    from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
+    from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
+    from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
+
+    dev = x8.device
+    hops = AO_BLOCK_HOPS
+    thr = float(cfg8.threshold)
+    shape8 = (f"SF8 [{x8.shape[0]}, {x8.shape[1]}, 2] -> "
+              f"[{x8.shape[0]}, {hops}, {cfg8.bin_size}]")
+    for tag, name, cls in (("K3", "rdft_spectra", RdftSpectra),
+                           ("K4b", "direct_spectra", DirectSpectra)):
+        mod = cls(cfg8, hops).to(dev)
+        kern = mod.kernel(x8)
+        plain = mod.plain(x8)
+        torch.cuda.synchronize()
+        err = _dense_check(name, kern, plain, 1e-4)
+        _, moved = _compare(peaks_plain(*kern, thr, 8),
+                            peaks_plain(*plain, thr, 8), plain[1], 1e-3, thr)
+        del kern, plain
+        ms = _time_ms(lambda: mod.kernel(x8), 5)
+        plain_ms = _time_ms(lambda: mod.plain(x8), 3)
+        print(f"parity {tag} {name} {shape8}: max_abs_err={err:.6g} "
+              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        report[name].append((err, ms, plain_ms, shape8))
+        del mod
+        torch.cuda.empty_cache()
+
+    mod = DirectPeaks(cfg8, hops, 8).to(dev)
+    kern = mod(x8)
+    plain = mod.plain(x8)
+    _, faw, _ = mod.front.plain(x8)
+    torch.cuda.synchronize()
+    err, moved = _compare(kern, plain, faw, 1e-3, thr)
+    del kern, plain, faw
+    ms = _time_ms(lambda: mod(x8), 5)
+    plain_ms = _time_ms(lambda: mod.plain(x8), 3)
+    shape = (f"SF8 [{x8.shape[0]}, {x8.shape[1]}, 2] -> "
+             f"[{x8.shape[0]}, {hops}, 8]")
+    print(f"parity K4 direct_peaks {shape}: max_abs_err={err:.6g} "
+          f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    report["direct_peaks"].append((err, ms, plain_ms, shape))
+    del mod
+    torch.cuda.empty_cache()
+
+    for cfg, x, nh in ((cfg8, x8, hops), (cfg12, x12, 128)):
+        mod = OverlapSpectra(cfg, nh).to(dev)
+        g = mod.plan.chunk_dft(x, nh)
+        kern = mod.kernel(g)
+        plain = mod.plain_from_chunks(g)
+        torch.cuda.synchronize()
+        # K5 rounds every operation as its plain version does: exact.
+        err = _dense_check("overlap_spectra", kern, plain, 0.0)
+        del kern, plain
+        ms = _time_ms(lambda: mod.kernel(g), 5)
+        plain_ms = _time_ms(lambda: mod.plain_from_chunks(g), 3)
+        fft_ms = _time_ms(lambda: mod.plan.chunk_dft(x, nh), 5)
+        shape = (f"SF{cfg.sf} G [{g.shape[0]}, {g.shape[1]}, {g.shape[2]}, "
+                 f"2] -> [{g.shape[0]}, {nh}, {cfg.bin_size}]")
+        print(f"parity K5 overlap_spectra {shape}: max_abs_err={err:.6g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"chunk_dft_ms={fft_ms:.4f}")
+        report["overlap_spectra"].append((err, ms, plain_ms, shape))
+        del mod, g
+        torch.cuda.empty_cache()
+
+
+def _kernel_modules(module, name: str) -> list:
+    """The submodules whose ``launches`` count kernel ``name``."""
+    from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
+    from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
+    from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
+
+    cls = {"rdft_spectra": RdftSpectra, "direct_spectra": DirectSpectra,
+           "direct_peaks": DirectPeaks,
+           "overlap_spectra": OverlapSpectra}[name]
+    return [m for m in module.modules() if type(m) is cls]
+
+
+def always_on(cfg, iq, dev, card: str, launches: dict) -> None:
+    """Phase 5: the always-on gateway once per kernel backend: two passes
+    of the fixture in AO_CHUNK chunks (numpy, as bench.py feeds it), then
+    a flush; both golden PDUs must decode on every channel for each of
+    the fixture's two collisions in each pass."""
+    import torch
+
+    from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
+
+    channels, t = iq.shape[0], iq.shape[1]
+    for backend, name in AO_BACKENDS.items():
+        gw = PyramidGateway(cfg, channels, block_hops=AO_BLOCK_HOPS,
+                            max_peaks=8, backend=backend, device=dev)
+        mods = _kernel_modules(gw.lattice, name)
+        for m in mods:
+            m.launches = 0
+        gw.wall_reset()
+        pkts, secs, walls = [], [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for lo in range(0, t, AO_CHUNK):
+                pkts += gw.feed(iq[:, lo:lo + AO_CHUNK])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            walls.append(gw.wall_reset())
+        pkts += gw.flush()
+        torch.cuda.synchronize()
+        count = sum(m.launches for m in mods)
+        launches[name] = launches.get(name, 0) + count
+        if count <= 0:
+            fail(f"always-on {backend}: kernel {name} was not launched")
+        for c in range(channels):
+            pdus = [bytes(p.result.payload).hex() for p in pkts
+                    if p.channel == c and p.result is not None
+                    and p.result.ok and p.result.crc_ok]
+            if pdus.count(PDU1) != 4 or pdus.count(PDU2) != 4:
+                fail(f"always-on {backend}: channel {c} decoded {pdus}, "
+                     "want each golden PDU 4 times")
+        w = walls[1]
+        sps = channels * t / secs[1]
+        print(f"main always-on backend={backend} {channels}ch SF{cfg.sf} "
+              f"block_hops={AO_BLOCK_HOPS} T={t} x2 passes + flush on "
+              f"{card}: packets={len(pkts)} pass_s=[{secs[0]:.4f}, "
+              f"{secs[1]:.4f}] pass2_wall[dispatch={w['dispatch']:.4f} "
+              f"fetch={w['fetch']:.4f} tracker={w['tracker']:.4f} "
+              f"decode={w['decode']:.4f}] pass2_samples_per_s={sps:.1f} "
+              f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
+              f"launches={{'{name}': {count}}}")
+        del gw
+        torch.cuda.empty_cache()
+
+
+def multi_sf(base, iq, singles, dev, card: str, launches: dict) -> None:
+    """Phase 6: MultiSFPyramidGateway, backend "fastp", 16 ch x SF7-12,
+    bench.py's per-SF block_hops; the golden PDUs and every single must
+    decode."""
+    import torch
+
+    from gr_lora_tpu_torch.dist.pyramid_gateway import MultiSFPyramidGateway
+
+    channels, t = iq.shape[0], iq.shape[1]
+    bh = {sf: max(64, AO_BLOCK_HOPS * 256 // (1 << sf)) for sf in SFS}
+    gw = MultiSFPyramidGateway(base, channels, sfs=SFS, block_hops=bh,
+                               max_peaks=8, backend="fastp", device=dev)
+    mods = [m for g in gw.gws.values()
+            for m in _kernel_modules(g.lattice, "overlap_spectra")]
+    for m in mods:
+        m.launches = 0
+    gw.wall_reset()
+    t0 = time.perf_counter()
+    pkts = gw.feed(iq)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    w = gw.wall_reset()
+    pkts += gw.flush()
+    torch.cuda.synchronize()
+    count = sum(m.launches for m in mods)
+    launches["overlap_spectra"] = launches.get("overlap_spectra", 0) + count
+    if count <= 0:
+        fail("multi-SF: kernel overlap_spectra was not launched")
+    got = _ok_pdus(pkts)
+    missing = [c for c in range(channels)
+               if not {(8, PDU1), (8, PDU2)} <= got.get(c, set())]
+    lost = [c for c, (hx, _) in singles.items()
+            if not any(sf == SFS[c % len(SFS)] and hx in h
+                       for sf, h in got.get(c, set()))]
+    if missing or lost:
+        fail(f"multi-SF: golden PDUs missing on channels {missing}, "
+             f"singles lost on channels {lost}")
+    sps = channels * t / feed_s
+    print(f"main multi-SF backend=fastp {channels}ch x SF7-12 T={t} "
+          f"block_hops={bh} feed + flush on {card}: packets={len(pkts)} "
+          f"feed_s={feed_s:.4f} feed_wall[dispatch={w['dispatch']:.4f} "
+          f"fetch={w['fetch']:.4f} tracker={w['tracker']:.4f} "
+          f"decode={w['decode']:.4f}] feed_samples_per_s={sps:.1f} "
+          f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
+          f"launches={{'overlap_spectra': {count}}}")
+
+
+#: route, source, and the TPU kernel (file:line of its function) of each.
+META = {
+    "rdft_peaks": ("cuda", "gr_lora_tpu_torch/csrc/rdft_spectra.cu",
+                   "gr_lora_tpu/ops/pallas_rdft.py:352"),
+    "overlap_peaks": ("cuda", "gr_lora_tpu_torch/csrc/overlap_spectra.cu",
+                      "gr_lora_tpu/ops/pallas_peaks.py:167"),
+    "rdft_spectra": ("cuda", "gr_lora_tpu_torch/csrc/rdft_spectra.cu",
+                     "gr_lora_tpu/ops/pallas_rdft.py:219"),
+    "direct_spectra": ("cuda", "gr_lora_tpu_torch/csrc/direct_spectra.cu",
+                       "gr_lora_tpu/ops/pallas_direct.py:101"),
+    "direct_peaks": ("cuda", "gr_lora_tpu_torch/csrc/direct_spectra.cu",
+                     "gr_lora_tpu/ops/pallas_direct.py:244"),
+    "overlap_spectra": ("cuda", "gr_lora_tpu_torch/csrc/overlap_spectra.cu",
+                        "gr_lora_tpu/ops/pallas_overlap.py:85"),
+}
 
 
 def main() -> None:
@@ -300,31 +576,51 @@ def main() -> None:
     iq, singles = north_star_fixture(cfgs)
     iq_dev = torch.from_numpy(iq).to(dev)
 
+    ao_cfg = base_config()
+    ao_iq, _ = always_on_fixture(ao_cfg)
+    n = ao_cfg.num_samples
+    block = AO_BLOCK_HOPS * n // 8 + n - n // 8
+    msf_cfgs = {sf: base_config().replace(sf=sf, ldr=(1 << sf) / 125e3
+                                          > 16e-3) for sf in SFS}
+    msf_iq, msf_singles = north_star_fixture(msf_cfgs, AO_CHANNELS, T)
+    cfg12 = msf_cfgs[12]
+    n12 = cfg12.num_samples
+    lo12 = msf_singles[5][1] - 4 * n12          # an SF12 single (channel 5)
+    x12 = torch.from_numpy(
+        msf_iq[:, lo12:lo12 + 128 * n12 // 8 + n12 - n12 // 8]).to(dev)
+
     # Phase 3: kernel parity on the card.
-    report = {"rdft_peaks": [], "overlap_peaks": []}
+    report = {name: [] for name in META}
     with torch.no_grad():
         parity(gw, iq_dev, singles, report)
+        parity_dense(ao_cfg, torch.from_numpy(ao_iq[:, :block]).to(dev),
+                     cfg12, x12, report)
+    del x12
+    torch.cuda.empty_cache()
 
-    # Phase 4: the main path.
+    # Phase 4: the north-star main path (K1, K2).
     launches = main_path(gw, iq_dev, singles, card)
+    del gw, iq_dev
+    torch.cuda.empty_cache()
+
+    # Phases 5-6: the always-on paths (K3, K4b, K4, K5).
+    always_on(ao_cfg, ao_iq, dev, card, launches)
+    multi_sf(base_config(), msf_iq, msf_singles, dev, card, launches)
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    meta = {
-        "rdft_peaks": ("cuda", "gr_lora_tpu_torch/csrc/rdft_peaks.cu",
-                       "gr_lora_tpu/ops/pallas_rdft.py:352"),
-        "overlap_peaks": ("cuda", "gr_lora_tpu_torch/csrc/overlap_peaks.cu",
-                          "gr_lora_tpu/ops/pallas_peaks.py:167"),
-    }
     kernels = []
     for name, rows in report.items():
-        route, source, replaces = meta[name]
+        route, source, replaces = META[name]
         err = max(r[0] for r in rows)
-        _, ms, plain_ms, shape = rows[-1]       # the largest main-path shape
-        kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "shape": shape})
+        _, ms, plain_ms, shape = rows[-1]       # the last main-path shape
+        entry = {"name": name, "route": route, "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "shape": shape}
+        if name.endswith("_peaks"):
+            entry["epilogue"] = "gr_lora_tpu_torch/csrc/peak_topm.cu"
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

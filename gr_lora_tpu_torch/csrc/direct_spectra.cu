@@ -1,0 +1,171 @@
+// Direct pyramid spectra: the fa / faw / hs folds of every overlapped hop
+// frame as ONE bf16 product per frame, from the raw [T, 2] IQ of each lane.
+//
+// Replaces gr_lora_tpu/ops/pallas_direct.py `make_direct_spectra` /
+// `_kernel` (K4b, whole), and is the front end of `make_direct_peaks` /
+// `_peaks_kernel` (K4: the same product and folds; its peak search is
+// csrc/peak_topm.cu).  Per frame f (samples x = iq[f*hop .. f*hop + n)):
+//
+//   y[8K]  = bf16([Re x | Im x]) @ W,   W = bf16 [2n, 8K]   (f32 accumulate)
+//   W's columns, 16 bins at a time: [c0 re | c0 im | ... | c3 re | c3 im],
+//   c = {plain, Kaiser} x {bins [0, K), bins [F-K, F)}, each the complex
+//   weight down[s] (* kaiser[s]) * exp(-2 pi i s b / F) rounded once to bf16
+//   m_c    = |y_c|;  fa = m0 + m1,  hs = max(m0, m1),  faw = m2 + m3
+//
+// The top band is [F-K, F) for every p (the fold landmine, SURVEY §7).
+// Numeric class of the TPU kernel: the RAW samples are rounded to bf16 (not
+// the dechirped ones, as in the rDFT kernel) and each weight once, and the
+// products accumulate in f32 (tensor-core WMMA m16n16k16, bf16 fragments).
+//
+// Bound on the card: tensor-core operations (16 n K MACs a frame, twice the
+// rDFT kernel's); W (32 MB at SF8 x ff 8) stays in L2.  Design: a block owns
+// 128 frames x 16 bins (the 128 columns of one W tile).  The TPU kernel's
+// [frames, 2n] bf16 frame matrix is never written: each block builds its A
+// tile from the raw iq at f*hop as it goes (real parts for the first n rows
+// of W, imaginary parts for the rest), and the 128 x 128 f32 product tile is
+// staged in shared memory and folded there, so only fa / faw / hs reach
+// device memory.  The magnitudes and folds round each product and sum on
+// their own, as the plain version does.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int kFt = 128;           // frames per block (A rows)
+constexpr int kBins = 16;          // bins per block
+constexpr int kCols = 8 * kBins;   // W columns per block
+constexpr int kKc = 32;            // contraction rows per k step
+constexpr int kThreads = 256;      // 8 warps: 4 (32-frame group) x 2 (64 cols)
+constexpr int kLda = kKc + 8;      // bf16, multiple of 8
+constexpr int kLdb = kCols + 8;    // bf16, multiple of 8
+constexpr int kLdc = kCols + 4;    // f32, multiple of 4
+constexpr size_t kSmemAB =
+    (size_t)kFt * kLda * 2 + (size_t)kKc * kLdb * 2;
+constexpr size_t kSmemC = (size_t)kFt * kLdc * 4;
+constexpr size_t kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
+
+__device__ __forceinline__ float cabs_rn(float re, float im) {
+    return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+direct_spectra_kernel(const float2* __restrict__ iq,
+                      const __nv_bfloat16* __restrict__ w,
+                      float* __restrict__ fa, float* __restrict__ faw,
+                      float* __restrict__ hs, int t_len, int frames, int n,
+                      int hop, int k) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* bs = as + kFt * kLda;
+    float* cs = reinterpret_cast<float*>(smem);        // after the k loop
+
+    const int f0 = blockIdx.x * kFt;
+    const int tile = blockIdx.y;                       // bins tile*16 ..
+    const long long lane = blockIdx.z;
+    const float2* x = iq + lane * (long long)t_len;
+    const long long wcols = 8LL * k;
+    const __nv_bfloat16* wt = w + (long long)tile * kCols;
+    const int warp = threadIdx.x >> 5;
+    const int wr = warp >> 1;          // 32-frame group
+    const int wc = warp & 1;           // column half (64 of 128)
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+    for (int k0 = 0; k0 < 2 * n; k0 += kKc) {
+        // A: the raw sample component of W's rows k0.., one bf16 rounding.
+        const int part = k0 >= n;                      // 0 re, 1 im
+        const int s0 = k0 - part * n;
+        for (int e = threadIdx.x; e < kFt * kKc; e += kThreads) {
+            const int fr = e / kKc, s = e % kKc;
+            const int f = f0 + fr;
+            const long long pos = (long long)f * hop + s0 + s;
+            float v = 0.0f;
+            if (f < frames && pos < t_len) {
+                const float2 z = x[pos];
+                v = part ? z.y : z.x;
+            }
+            as[fr * kLda + s] = __float2bfloat16(v);
+        }
+        // B: rows k0.. of this block's 128 contiguous W columns, 16 B a load.
+        for (int e = threadIdx.x; e < kKc * (kCols / 8); e += kThreads) {
+            const int kr = e / (kCols / 8), c8 = e % (kCols / 8);
+            *reinterpret_cast<uint4*>(bs + kr * kLdb + c8 * 8) =
+                *reinterpret_cast<const uint4*>(wt + (k0 + kr) * wcols + c8 * 8);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kKc; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> af[2];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> bf[4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                wmma::load_matrix_sync(af[i], as + (wr * 32 + i * 16) * kLda + kk,
+                                       kLda);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                wmma::load_matrix_sync(bf[j], bs + kk * kLdb + wc * 64 + j * 16,
+                                       kLdb);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * kLdc + wc * 64 + j * 16,
+                                    acc[i][j], kLdc, wmma::mem_row_major);
+    __syncthreads();
+
+    for (int e = threadIdx.x; e < kFt * kBins; e += kThreads) {
+        const int fr = e / kBins, b = e % kBins;
+        const int f = f0 + fr;
+        if (f >= frames) continue;
+        const float* row = cs + fr * kLdc + b;
+        float m[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+            m[c] = cabs_rn(row[(2 * c) * kBins], row[(2 * c + 1) * kBins]);
+        const long long o = (lane * frames + f) * (long long)k + tile * kBins + b;
+        fa[o] = __fadd_rn(m[0], m[1]);
+        hs[o] = fmaxf(m[0], m[1]);
+        faw[o] = __fadd_rn(m[2], m[3]);
+    }
+}
+
+}  // namespace
+
+extern "C" int grl_direct_spectra(const float* iq, const void* w, float* fa,
+                                  float* faw, float* hs, int lanes, int t_len,
+                                  int frames, int n, int hop, int k,
+                                  void* stream) {
+    if (lanes <= 0 || frames <= 0) return 0;
+    if (n % kKc || k % kBins || k / kBins > 65535)
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        direct_spectra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((frames + kFt - 1) / kFt, k / kBins, lanes);
+    direct_spectra_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float2*>(iq),
+        reinterpret_cast<const __nv_bfloat16*>(w), fa, faw, hs, t_len, frames,
+        n, hop, k);
+    return (int)cudaGetLastError();
+}

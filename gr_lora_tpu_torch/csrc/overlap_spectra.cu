@@ -1,10 +1,11 @@
-// Overlap-decomposed pyramid spectra (K2 front end): the fa / faw / hs
-// folds of every hop from the chunk spectra G, for large SF at the
-// collision zoom.
+// Overlap-decomposed pyramid spectra: the fa / faw / hs folds of every hop
+// from the chunk spectra G, for large SF at the collision zoom.
 //
-// Replaces gr_lora_tpu/ops/pallas_peaks.py `make_overlap_peaks` /
-// `_kernel` (the j-sum, window convolution and folds; the peak search is
-// csrc/peak_topm.cu).  With hop h = N/8, F = fft_factor * N, per hop b:
+// Replaces gr_lora_tpu/ops/pallas_overlap.py `make_overlap_spectra` /
+// `_kernel` (K5, whole; the chunk DFT stays outside, as there), and is the
+// front end of gr_lora_tpu/ops/pallas_peaks.py `make_overlap_peaks` /
+// `_kernel` (K2: the j-sum, window convolution and folds; its peak search
+// is csrc/peak_topm.cu).  With hop h = N/8, F = fft_factor * N, per hop b:
 //
 //   X_b[c]  = sum_{j<8} rho_j[c] * G[b + j, (c - sigma_j) mod F]
 //   Xw_b[c] = sum_q tap_q * X_b[(c - shift_q) mod F]      (~19-21 taps)

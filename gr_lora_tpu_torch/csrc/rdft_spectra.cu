@@ -1,8 +1,9 @@
-// rDFT pyramid spectra (K1 front end): the fa / faw / hs folds of every
-// overlapped hop frame, from the raw [T, 2] IQ of each lane.
+// rDFT pyramid spectra: the fa / faw / hs folds of every overlapped hop
+// frame, from the raw [T, 2] IQ of each lane.
 //
-// Replaces gr_lora_tpu/ops/pallas_rdft.py `make_rdft_peaks` /
-// `_peaks_kernel` (the dots and recombination; the peak search is
+// Replaces gr_lora_tpu/ops/pallas_rdft.py `make_rdft_spectra` / `_kernel`
+// (K3, whole), and is the front end of `make_rdft_peaks` / `_peaks_kernel`
+// (K1: these dots and the recombination; its peak search is
 // csrc/peak_topm.cu).  Per frame f (samples iq[f*hop .. f*hop + n)):
 //
 //   u      = iq * downchirp          (f32), and u * kaiser     (f32)

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The sources have a plain C interface and are compiled with ``nvcc`` for
-``sm_90a`` into one shared library under ``gr_lora_tpu_torch/_build/``
-(listed in ``.gitignore``), then loaded with ctypes.  The library is built
+The sources have a plain C interface.  Each is compiled with its own
+``nvcc`` for ``sm_90a``, all at once, and the objects are linked into one
+shared library under ``gr_lora_tpu_torch/_build/`` (listed in
+``.gitignore``), then loaded with ctypes.  The library is built
 at first use and rebuilt whenever a source is newer than it, so a fresh
 checkout builds everything on its first kernel launch.  Every entry point
 takes its pointers and the CUDA stream as ``c_void_p`` and returns
@@ -26,8 +27,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libgr_lora_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "grl_rdft_spectra": [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "grl_overlap_spectra": [_P] * 8 + [_I] * 7 + [_P],
+    "grl_direct_spectra": [_P] * 5 + [_I] * 6 + [_P],
     "grl_peak_topm": [_P] * 7 + [_LL, _I, _I, _F, _P],
 }
 
@@ -68,28 +71,48 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in sources())
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of each that
+    failed, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into LIB_PATH if it is missing or stale.
 
     A file lock serialises concurrent builds (several test processes);
-    the library is written under a temporary name and renamed into place,
-    so a reader never sees a half-written file."""
+    the objects and the library are written under temporary names and
+    the library is renamed into place, so a reader never sees a
+    half-written file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         try:
             if not _stale():
                 return LIB_PATH
-            tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(p) for p in sources())]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, LIB_PATH)
+            nvcc = _nvcc()
+            tag = os.getpid()
+            objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+            tmp = LIB_PATH.with_suffix(f".{tag}.tmp")
+            try:
+                _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+                          for src, obj in zip(sources(), objs)])
+                _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
+                os.replace(tmp, LIB_PATH)
+            finally:
+                for f in (*objs, tmp):
+                    f.unlink(missing_ok=True)
             return LIB_PATH
         finally:
             fcntl.flock(lk, fcntl.LOCK_UN)

@@ -6,11 +6,12 @@ an NVIDIA GPU and nvcc, run ``python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py`` (the file imports no JAX; the repo's
 conftest.py does, and such a machine need not have it).
 
-Tolerances: K1's plain version is the same bf16-operand / f32-accumulate
-class in another summation order (heights rtol 1e-3; a peak may differ
-only where an f32 tie decides it, see peak_epilogue.compare_peaks).  K2
-and the epilogue round as their plain versions do and must equal them
-exactly.
+Tolerances: K1, K3, K4b and K4's plain versions are the same
+bf16-operand / f32-accumulate class in another summation order (heights
+rtol 1e-3; a peak may differ only where an f32 tie decides it, see
+peak_epilogue.compare_peaks; the dense K3 / K4b spectra within 1e-4 of
+their largest value).  K2, K5 and the epilogue round as their plain
+versions do and must equal them exactly.
 """
 
 import numpy as np
@@ -22,11 +23,14 @@ from gr_lora_tpu.core.codec import encode
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.models.pyramid import num_hops_for
 from gr_lora_tpu_torch.ops.cplx import to_ri
+from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
 from gr_lora_tpu_torch.ops.overlap_dft import spectra_from_chunks
 from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
 from gr_lora_tpu_torch.ops.peak_epilogue import (compare_peaks, launch_topm,
                                                  peaks_plain)
 from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
 
 pytestmark = pytest.mark.cuda
 
@@ -75,7 +79,7 @@ def test_rdft_kernel_matches_plain(dev, sf, ff):
     kern = mod(x)
     assert mod.launches == 1
     plain = mod.plain(x)
-    _, faw, _ = mod.spectra_plain(x)
+    _, faw, _ = mod.front.plain(x)
     assert plain[3].any()
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
 
@@ -91,7 +95,7 @@ def test_overlap_kernel_matches_plain(dev, sf, ff, p):
     nh = min(num_hops_for(cfg, total), 128)
     mod = OverlapPeaks(cfg, nh, 8).to(dev)
     g = mod.plan.chunk_dft(torch.from_numpy(iq).to(dev), nh)
-    for a, b in zip(mod.spectra_from_chunks(g),
+    for a, b in zip(mod.front.kernel(g),
                     spectra_from_chunks(g, mod.plan, nh)):
         assert torch.equal(a, b), float(torch.max(torch.abs(a - b)))
     kern = mod.from_chunks(g)
@@ -122,12 +126,108 @@ def test_topm_kernel_equals_plain(dev, m):
 
 def test_kernel_wrappers_reject_bad_input(dev):
     cfg = _cfg(7)
-    mod = RdftPeaks(cfg, 16, 8).to(dev)
+    bad = torch.zeros((4096, 2), dtype=torch.float64, device=dev)
+    for mod in (RdftPeaks(cfg, 16, 8), DirectSpectra(cfg, 16)):
+        with pytest.raises(ValueError):
+            mod.to(dev)(bad)
     with pytest.raises(ValueError):
-        mod(torch.zeros((4096, 2), dtype=torch.float64, device=dev))
+        OverlapSpectra(cfg, 16).to(dev).from_chunks(
+            torch.zeros((8, 2048, 2), device=dev))
     with pytest.raises(ValueError):
         launch_topm(*(torch.zeros(4, 64, device=dev) for _ in range(3)),
                     5.0, 17)
+
+
+def _dense_close(kern, plain, rtol):
+    scale = max(float(b.abs().max()) for b in plain)
+    for a, b in zip(kern, plain):
+        assert float((a - b).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("cls", [RdftSpectra, DirectSpectra])
+@pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8), (7, 2)])
+def test_dense_bf16_kernels_match_plain(dev, cls, sf, ff):
+    """K3 and K4b: the dense folds within 1e-4 of their largest value, and
+    the same peaks up to f32 ties."""
+    cfg = _cfg(sf, ff)
+    iq, total = _lanes(cfg, 3, sf + 1)
+    mod = cls(cfg, num_hops_for(cfg, total)).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    assert mod.launches == 1
+    plain = mod.plain(x)
+    _dense_close(kern, plain, 1e-4)
+    ref = peaks_plain(*plain, cfg.threshold, 8)
+    assert ref[3].any()
+    compare_peaks(ref, peaks_plain(*kern, cfg.threshold, 8), 1e-3,
+                  faw=plain[1], threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8)])
+def test_direct_peaks_kernel_matches_plain(dev, sf, ff):
+    cfg = _cfg(sf, ff)
+    iq, total = _lanes(cfg, 3, sf + 2)
+    mod = DirectPeaks(cfg, num_hops_for(cfg, total), 8).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    assert mod.launches == 1 and mod.front.launches == 0
+    plain = mod.plain(x)
+    assert plain[3].any()
+    _, faw, _ = mod.front.plain(x)
+    compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("sf,ff,p", [(8, 8, 2), (10, 8, 2), (12, 8, 2),
+                                     (10, 1, 4)])
+def test_overlap_spectra_kernel_equals_plain(dev, sf, ff, p):
+    """K5 (K2's front end as its own op) equals its plain version bit for
+    bit, at SF8 and at the SF10-12 points the JAX kernel's tile cap
+    refuses."""
+    cfg = _cfg(sf, ff, p)
+    iq, total = _lanes(cfg, 2, sf + 3)
+    nh = min(num_hops_for(cfg, total), 128)
+    mod = OverlapSpectra(cfg, nh).to(dev)
+    g = mod.plan.chunk_dft(torch.from_numpy(iq).to(dev), nh)
+    kern = mod.from_chunks(g)
+    assert mod.launches == 1
+    for a, b in zip(kern, mod.plain_from_chunks(g)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("backend,cls", [("rdft", RdftSpectra),
+                                         ("direct", DirectSpectra),
+                                         ("fused_direct", DirectPeaks),
+                                         ("fastp", OverlapSpectra)])
+def test_always_on_gateway_on_card_decodes_golden(dev, backend, cls):
+    """The always-on gateway on the card, fed numpy chunks: both golden
+    PDUs on both channels, through the backend's kernel."""
+    from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
+    cfg = LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
+                     payload_len=8, p=2, fft_factor=8, threshold=5.0)
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg,
+                         pad_front=0, pad_back=0)
+    iq = np.zeros((2, 1000 + 84 * n), np.complex64)
+    for c in range(2):
+        base = 1000 + c * 4 * n
+        off2 = base + 16 * n + 4 * n // 8 + 204
+        iq[c, base:base + len(p1)] += p1
+        iq[c, off2:off2 + len(p2)] += p2
+    gw = PyramidGateway(cfg, 2, block_hops=256, max_peaks=8, backend=backend,
+                        device=dev)
+    ri = to_ri(iq)
+    pkts = []
+    for lo in range(0, ri.shape[1], 5000):
+        pkts += gw.feed(ri[:, lo:lo + 5000])
+    pkts += gw.flush()
+    got = {(p.channel, bytes(p.result.payload).hex()) for p in pkts
+           if p.result is not None and p.result.ok}
+    for c in range(2):
+        assert (c, PDU1) in got and (c, PDU2) in got, got
+    assert sum(m.launches for m in gw.lattice.modules()
+               if isinstance(m, cls)) > 0
 
 
 def test_gateway_on_card_decodes_golden(dev):

@@ -29,7 +29,7 @@ from gr_lora_tpu_torch.dist.triggered import make_preamble_scan
 from gr_lora_tpu_torch.models import modulator as tmod
 from gr_lora_tpu_torch.ops import chirp as tchirp
 from gr_lora_tpu_torch.ops.overlap_dft import OverlapPlan
-from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
 
 GRID = [(sf, p) for sf in range(7, 13) for p in (2, 8)]
 
@@ -66,7 +66,7 @@ def test_modulate_and_packet_duration(sf, p):
 @pytest.mark.parametrize("sf,ff", [(7, 2), (7, 8), (8, 8), (9, 8)])
 def test_rdft_plan_constants(sf, ff):
     cfg = _cfg(sf, ff=ff)
-    mod = RdftPeaks(cfg, 8)
+    mod = RdftSpectra(cfg, 8)
     ref_w = np.asarray(jrdft._rdft_weights(cfg))
     assert mod.w.dtype == torch.bfloat16 and mod.w.shape == ref_w.shape
     assert np.array_equal(mod.w.view(torch.int16).numpy().view(np.uint16),
