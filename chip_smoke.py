@@ -13,13 +13,13 @@ the final ``ok`` line):
    on the card at main-path shapes, with CUDA-event times of both:
    K1 rDFT peaks at SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8 event
    lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
-   spectra, K4 direct peaks and K5 overlap spectra on one always-on block
-   of 16 channels x 2048 hops at SF8 (K5 also on the SF12 block of the
-   multi-SF gateway).  Tolerances: K1, K3, K4b and K4 sum bf16 products
-   in another order than their plain versions — the same peaks up to f32
-   ties, heights within rtol 1e-3, and the dense K3 / K4b spectra within
-   1e-4 of the largest value; K2 and K5 round as their plain versions
-   do: equal bit for bit;
+   spectra, K6 chunk spectra, K4 direct peaks and K5 overlap spectra on
+   one always-on block of 16 channels x 2048 hops at SF8 (K5 also on the
+   SF12 block of the multi-SF gateway).  Tolerances: K1, K3, K4b, K6 and
+   K4 sum bf16 products in another order than their plain versions — the
+   same peaks up to f32 ties, heights within rtol 1e-3, and the dense K3 /
+   K4b / K6 spectra within 1e-4 of the largest value; K2 and K5 round as
+   their plain versions do: equal bit for bit;
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
    backend "fused": K1 and K2) fed the golden SF8 collision on every
@@ -27,17 +27,28 @@ the final ``ok`` line):
 5. always-on — the always-on gateway (PyramidGateway) at the
    rx_file_collision.grc point, 16 channels, 2048-hop blocks, once per
    kernel backend ("rdft": K3, "direct": K4b, "fused_direct": K4,
-   "fastp": K5), fed two passes of a stream whose collisions straddle
-   block boundaries in chunks, then flushed;
+   "fastp": K5, "pallas": K6), fed two passes of a stream whose
+   collisions straddle block boundaries in chunks, then flushed;
 6. multi-SF — MultiSFPyramidGateway, 16 channels x SF7-12, backend
    "fastp" (K5 at every SF), fed the golden collision and one single at
-   a round-robin SF per channel.
+   a round-robin SF per channel;
+7. probes — P1, the tensor-core rate probe, and P2, the tensor-core /
+   CUDA-core overlap probe, at the main path's dot shape (256, 512, 4352):
+   each checked against its plain version first (P1's value within rtol
+   1e-3; P2 over 4 steps: its chain slab equal bit for bit, its product
+   within rtol 1e-3), then timed: P1's TFLOP/s beside torch.matmul's
+   (cuBLAS) on the same bf16 operands, P2's three variants and its
+   overlap efficiency.
 
-Phases 4-6 each assert every decode and that their kernels ran: every
+Phases 4-7 each assert what they check and that their kernels ran: every
 launch count is set to 0 just before a phase and read just after.  The
 line before the last is a JSON object with every kernel's route, source,
-launches, max |delta| against its plain version and times; the last line
-is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+the TPU kernel it replaces, launches, max |delta| against its plain
+version, times, and the least time the card could take (``bound_ms``:
+the larger of the bytes the function must move over 3.35 TB/s and its
+operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32, from this run's
+shapes); the last line is ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -58,8 +69,14 @@ PDU2 = "0530000707070707e76b01"
 AO_CHANNELS = 16
 AO_BLOCK_HOPS = 2048
 AO_BACKENDS = {"rdft": "rdft_spectra", "direct": "direct_spectra",
-               "fused_direct": "direct_peaks", "fastp": "overlap_spectra"}
+               "fused_direct": "direct_peaks", "fastp": "overlap_spectra",
+               "pallas": "chunk_spectra"}
 AO_CHUNK = 50_000                # feed chunk: blocks are 131 072 samples
+#: The card's published peaks (H100 SXM, dense, at 700 W): bf16 tensor
+#: cores, f32 on the CUDA cores, device memory.
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -68,7 +85,7 @@ def fail(msg: str) -> None:
 
 
 def base_config():
-    from gr_lora_tpu import LoraConfig
+    from gr_lora_tpu_torch import LoraConfig
 
     return LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
                       payload_len=8, p=2, fft_factor=8, threshold=5.0)
@@ -79,7 +96,7 @@ def north_star_fixture(cfgs: dict, channels: int = CHANNELS, t: int = T):
     noise 0.003 from default_rng(0), the golden SF8 collision on every
     channel, one single at SF SFS[c % 6] per channel.  Returns
     (iq float32 [C, t, 2], {channel: (single payload hex, offset)})."""
-    from gr_lora_tpu.core.codec import encode
+    from gr_lora_tpu_torch.core.codec import encode
     from gr_lora_tpu_torch.models.modulator import modulate
     from gr_lora_tpu_torch.ops.cplx import to_ri
 
@@ -118,7 +135,7 @@ def always_on_fixture(cfg, blocks: int = 4):
     golden collision at bench.py's offset in block 0 plus a second one
     straddling the boundary of blocks 1 and 2.  Returns (iq float32
     [16, T, 2], the two collisions' first-packet offsets per channel)."""
-    from gr_lora_tpu.core.codec import encode
+    from gr_lora_tpu_torch.core.codec import encode
     from gr_lora_tpu_torch.models.modulator import modulate
     from gr_lora_tpu_torch.ops.cplx import to_ri
 
@@ -186,6 +203,40 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work — the larger of the bytes it must move (each input read once,
+    each output written once) over the memory rate and its operations
+    over their peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(bf16_ops / BF16_FLOPS, f32_ops / F32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def _row(err, ms, plain_ms, shape, bound, library_ms=None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms, "shape": shape}
+
+
+def _peak_bytes(lanes: int, hops: int, m: int) -> int:
+    """Bytes of a peak lattice: bins int32, h and h_single f32, valid."""
+    return 13 * lanes * hops * m
+
+
+def _overlap_f32_ops(plan, lanes: int, hops: int) -> int:
+    """K2 / K5 f32 operations: per hop and spectral bin, the 8-term
+    bin-shifted complex sum (8 complex multiply-adds), its magnitude, the
+    window's complex taps and their magnitude; then three folds a bin."""
+    f, k, taps = plan.fft_size, plan.bin_size, len(plan.shift_list)
+    return lanes * hops * (f * (8 * 8 + 4 + 8 * taps + 4) + 3 * k)
+
+
 def _event_windows(iq_dev, gw, singles, sf, lanes, length):
     """[lanes, length, 2] windows of the fixture on the card, each
     starting one lead before a channel's golden collision (SF8) or single
@@ -231,9 +282,14 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         plain_ms = _time_ms(lambda: mod.plain(x), 3)
         shape = f"SF{sf} [{lanes}, {x.shape[1]}, 2] -> [{lanes}, " \
                 f"{mod.num_frames}, {mod.max_peaks}]"
+        fr = mod.front
+        bound = _bound(_nbytes(x, fr.w, fr.consts)
+                       + _peak_bytes(lanes, mod.num_frames, mod.max_peaks),
+                       lanes * mod.num_frames * 16 * fr.n * fr.kp)
         print(f"parity K1 rdft_peaks {shape}: max_abs_err={err:.6g} "
-              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        report["rdft_peaks"].append((err, ms, plain_ms, shape))
+              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound[0]:.4f}")
+        report["rdft_peaks"].append(_row(err, ms, plain_ms, shape, bound))
     for sf in (10, 12):
         st = gw.sf_states[sf]
         lat = gw.lattice(sf)
@@ -252,9 +308,15 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         plain_ms = _time_ms(lambda: mod.plain_from_chunks(g), 3)
         shape = f"SF{sf} G [{lanes}, {g.shape[1]}, {g.shape[2]}, 2] -> " \
                 f"[{lanes}, {mod.num_hops}, {mod.max_peaks}]"
+        plan = mod.plan
+        bound = _bound(_nbytes(g, plan.rho, plan.win_taps)
+                       + _peak_bytes(lanes, mod.num_hops, mod.max_peaks),
+                       f32_ops=_overlap_f32_ops(plan, lanes, mod.num_hops))
         print(f"parity K2 overlap_peaks {shape}: max_abs_err={err:.6g} "
-              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        report["overlap_peaks"].append((err, ms, plain_ms, shape))
+              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound[0]:.4f}")
+        report["overlap_peaks"].append(_row(err, ms, plain_ms, shape,
+                                            bound))
 
 
 def main_path(gw, iq_dev, singles, card: str) -> dict:
@@ -337,13 +399,14 @@ def _dense_check(name, kern, plain, rtol):
 
 
 def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
-    """Phase 3, dense kernels: K3, K4b, K4 and K5 against their plain
+    """Phase 3, dense kernels: K3, K4b, K6, K4 and K5 against their plain
     versions on one always-on block [16, 2048 hops] at SF8 (K5 also on
     the multi-SF gateway's SF12 block of 128 hops).  Each comparison
     frees its tensors before the next (the plain direct product alone is
     [32768, 16384] f32)."""
     import torch
 
+    from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
     from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
@@ -354,8 +417,17 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
     thr = float(cfg8.threshold)
     shape8 = (f"SF8 [{x8.shape[0]}, {x8.shape[1]}, 2] -> "
               f"[{x8.shape[0]}, {hops}, {cfg8.bin_size}]")
-    for tag, name, cls in (("K3", "rdft_spectra", RdftSpectra),
-                           ("K4b", "direct_spectra", DirectSpectra)):
+    lanes, k = x8.shape[0], cfg8.bin_size
+    dense_out = 3 * 4 * lanes * hops * k          # fa, faw, hs f32
+    # bf16 operations a frame: K3 four [n] x [2 kp] dots, K4b one
+    # [2n] x [8K] product, K6 eight [R w] x [K] products.
+    for tag, name, cls, frame_ops in (
+            ("K3", "rdft_spectra", RdftSpectra,
+             lambda m: 16 * m.n * m.kp),
+            ("K4b", "direct_spectra", DirectSpectra,
+             lambda m: 32 * m.n * k),
+            ("K6", "chunk_spectra", ChunkSpectra,
+             lambda m: 2 * m.w.shape[0] * m.w.shape[1] * k)):
         mod = cls(cfg8, hops).to(dev)
         kern = mod.kernel(x8)
         plain = mod.plain(x8)
@@ -366,9 +438,13 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         del kern, plain
         ms = _time_ms(lambda: mod.kernel(x8), 5)
         plain_ms = _time_ms(lambda: mod.plain(x8), 3)
+        consts = [b for b in mod.buffers()]
+        bound = _bound(_nbytes(x8, *consts) + dense_out,
+                       lanes * hops * frame_ops(mod))
         print(f"parity {tag} {name} {shape8}: max_abs_err={err:.6g} "
-              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        report[name].append((err, ms, plain_ms, shape8))
+              f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound[0]:.4f}")
+        report[name].append(_row(err, ms, plain_ms, shape8, bound))
         del mod
         torch.cuda.empty_cache()
 
@@ -383,9 +459,12 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
     plain_ms = _time_ms(lambda: mod.plain(x8), 3)
     shape = (f"SF8 [{x8.shape[0]}, {x8.shape[1]}, 2] -> "
              f"[{x8.shape[0]}, {hops}, 8]")
+    bound = _bound(_nbytes(x8, mod.front.w) + _peak_bytes(lanes, hops, 8),
+                   lanes * hops * 32 * mod.front.n * k)
     print(f"parity K4 direct_peaks {shape}: max_abs_err={err:.6g} "
-          f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    report["direct_peaks"].append((err, ms, plain_ms, shape))
+          f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound[0]:.4f}")
+    report["direct_peaks"].append(_row(err, ms, plain_ms, shape, bound))
     del mod
     torch.cuda.empty_cache()
 
@@ -403,23 +482,29 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         fft_ms = _time_ms(lambda: mod.plan.chunk_dft(x, nh), 5)
         shape = (f"SF{cfg.sf} G [{g.shape[0]}, {g.shape[1]}, {g.shape[2]}, "
                  f"2] -> [{g.shape[0]}, {nh}, {cfg.bin_size}]")
+        plan = mod.plan
+        bound = _bound(_nbytes(g, plan.rho, plan.win_taps)
+                       + 3 * 4 * g.shape[0] * nh * cfg.bin_size,
+                       f32_ops=_overlap_f32_ops(plan, g.shape[0], nh))
         print(f"parity K5 overlap_spectra {shape}: max_abs_err={err:.6g} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"chunk_dft_ms={fft_ms:.4f}")
-        report["overlap_spectra"].append((err, ms, plain_ms, shape))
+              f"chunk_dft_ms={fft_ms:.4f} bound_ms={bound[0]:.4f}")
+        report["overlap_spectra"].append(_row(err, ms, plain_ms, shape,
+                                              bound))
         del mod, g
         torch.cuda.empty_cache()
 
 
 def _kernel_modules(module, name: str) -> list:
     """The submodules whose ``launches`` count kernel ``name``."""
+    from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
     from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
 
     cls = {"rdft_spectra": RdftSpectra, "direct_spectra": DirectSpectra,
-           "direct_peaks": DirectPeaks,
-           "overlap_spectra": OverlapSpectra}[name]
+           "direct_peaks": DirectPeaks, "overlap_spectra": OverlapSpectra,
+           "chunk_spectra": ChunkSpectra}[name]
     return [m for m in module.modules() if type(m) is cls]
 
 
@@ -522,6 +607,97 @@ def multi_sf(base, iq, singles, dev, card: str, launches: dict) -> None:
           f"launches={{'overlap_spectra': {count}}}")
 
 
+def probes(dev, card: str, report: dict, launches: dict) -> None:
+    """Phase 7: P1 and P2 at the main path's dot shape.  Each is checked
+    against its plain version (those launches are not counted), then the
+    probe phase proper runs with the counts set to 0 just before it."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.probes import (MAIN_SHAPE, OverlapProbe,
+                                              RateProbe, probe_inputs)
+
+    rows, depth, width = MAIN_SHAPE
+    x, w, v0 = (t.to(dev) for t in probe_inputs(rows, depth, width))
+    shape = f"[{rows}, {depth}] @ [{depth}, {width}] bf16"
+    p1 = RateProbe()
+    got, ref = p1.kernel(x, w), p1.plain(x, w)
+    torch.cuda.synchronize()
+    err1 = float((got - ref).abs().max())
+    # Another summation order of 512 bf16 products: rtol 1e-3.
+    if not err1 <= 1e-3 * float(ref.abs().max()) + 1e-3:
+        fail(f"rate_probe {float(got)} differs from its plain version "
+             f"{float(ref)}")
+    kinds = ("mxu", "vpu", "both")
+    err2 = 0.0
+    for kind in kinds:
+        # 4 steps: the chain's values stay finite (it overflows to inf
+        # after some 16 rounds, as on the TPU), so the slabs compare.
+        short = OverlapProbe(kind, steps=4)
+        out, acc, vs = short.kernel(x[0], w, v0)
+        r_out, r_acc, r_vs = short.plain(x[0], w, v0)
+        torch.cuda.synchronize()
+        if not (torch.equal(vs, r_vs) and bool(torch.isfinite(vs).all())):
+            fail(f"overlap_probe {kind}: its chain slab differs from the "
+                 "plain version's")
+        if acc is not None and not torch.allclose(acc, r_acc, rtol=1e-3,
+                                                  atol=1e-3):
+            fail(f"overlap_probe {kind}: its product differs from the "
+                 "plain version's")
+        e = float((out - r_out).abs().max())
+        if not e <= 1e-3 * float(r_out.abs().max()) + 1e-3:
+            fail(f"overlap_probe {kind}: {float(out)} vs plain "
+                 f"{float(r_out)}")
+        err2 = max(err2, e)
+    p2 = {kind: OverlapProbe(kind) for kind in kinds}
+    p1_plain_ms = _time_ms(lambda: p1.plain(x, w), 3)
+    p2_plain_ms = _time_ms(lambda: p2["both"].plain(x[0], w, v0), 1)
+
+    p1.launches = 0
+    for pr in p2.values():
+        pr.launches = 0
+    ms1 = _time_ms(lambda: p1(x, w), 20)
+    # The yardstick: cuBLAS through torch.matmul on the same bf16
+    # operands, for the same products (16 steps of 4).
+    lib_ms = _time_ms(lambda: [torch.matmul(x, w) for _ in range(p1.steps)],
+                      5)
+    walls = {kind: _time_ms(lambda pr=pr: pr(x[0], w, v0), 20)
+             for kind, pr in p2.items()}
+    launches["rate_probe"] = p1.launches
+    launches["overlap_probe"] = sum(pr.launches for pr in p2.values())
+    if p1.launches <= 0 or any(pr.launches <= 0 for pr in p2.values()):
+        fail("probes: a probe kernel was not launched")
+
+    fl1 = p1.flops(x, w)
+    tf, lib_tf = fl1 / ms1 / 1e9, fl1 / lib_ms / 1e9
+    bound1 = _bound(_nbytes(x, w) + 4, fl1)
+    print(f"probe P1 rate_probe {shape} x4 x{p1.steps} steps on {card}: "
+          f"ms={ms1:.4f} tflops={tf:.1f} torch.matmul_ms={lib_ms:.4f} "
+          f"torch.matmul_tflops={lib_tf:.1f} plain_ms={p1_plain_ms:.4f} "
+          f"bound_ms={bound1[0]:.4f} max_abs_err={err1:.6g} "
+          f"launches={p1.launches}")
+    report["rate_probe"].append(_row(err1, ms1, p1_plain_ms, shape, bound1,
+                                     lib_ms))
+    steps = p2["both"].steps
+    for kind in kinds:
+        print(f"probe P2 overlap_probe {kind}: {walls[kind]:.3f} ms/call "
+              f"({walls[kind] / steps * 1e3:.2f} us/step)")
+    s_ms = walls["mxu"] + walls["vpu"]
+    m_ms = max(walls["mxu"], walls["vpu"])
+    b_ms = walls["both"]
+    eff = (s_ms - b_ms) / max(s_ms - m_ms, 1e-12)
+    print(f"probe P2 serial-sum={s_ms:.3f} ms  max={m_ms:.3f} ms  "
+          f"both={b_ms:.3f} ms  -> overlap_efficiency={eff:.0%} "
+          f"(100%=full dual-issue, 0%=serialized) on {card} "
+          f"launches={launches['overlap_probe']}")
+    chain_ops = steps * p2["both"].rounds * v0.numel() * 18
+    bound2 = _bound(_nbytes(x[0], w, v0) + 4,
+                    steps * 2 * rows * depth * width, chain_ops)
+    report["overlap_probe"].append(_row(
+        err2, b_ms, p2_plain_ms, f"both: {shape} x{steps} steps + f32 chain "
+        f"[{rows}, {v0.shape[1]}] x{steps * p2['both'].rounds} rounds",
+        bound2))
+
+
 #: route, source, and the TPU kernel (file:line of its function) of each.
 META = {
     "rdft_peaks": ("cuda", "gr_lora_tpu_torch/csrc/rdft_spectra.cu",
@@ -536,6 +712,12 @@ META = {
                      "gr_lora_tpu/ops/pallas_direct.py:244"),
     "overlap_spectra": ("cuda", "gr_lora_tpu_torch/csrc/overlap_spectra.cu",
                         "gr_lora_tpu/ops/pallas_overlap.py:85"),
+    "chunk_spectra": ("cuda", "gr_lora_tpu_torch/csrc/chunk_spectra.cu",
+                      "gr_lora_tpu/ops/pallas_frontend.py:134"),
+    "rate_probe": ("cuda", "gr_lora_tpu_torch/csrc/probes.cu",
+                   "bench.py:448"),
+    "overlap_probe": ("cuda", "gr_lora_tpu_torch/csrc/probes.cu",
+                      "tools/overlap_probe.py:59"),
 }
 
 
@@ -603,21 +785,25 @@ def main() -> None:
     del gw, iq_dev
     torch.cuda.empty_cache()
 
-    # Phases 5-6: the always-on paths (K3, K4b, K4, K5).
+    # Phases 5-6: the always-on paths (K3, K4b, K4, K5, K6).
     always_on(ao_cfg, ao_iq, dev, card, launches)
     multi_sf(base_config(), msf_iq, msf_singles, dev, card, launches)
+    torch.cuda.empty_cache()
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    # Phase 7: the probes (P1, P2).
+    probes(dev, card, report, launches)
+
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "gr_lora_tpu"))
+    if foreign:
+        fail(f"imported JAX or the JAX package: {foreign}")
     kernels = []
     for name, rows in report.items():
         route, source, replaces = META[name]
-        err = max(r[0] for r in rows)
-        _, ms, plain_ms, shape = rows[-1]       # the last main-path shape
+        last = rows[-1]                         # the last main-path shape
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "shape": shape}
+                 **last, "max_abs_err": max(r["max_abs_err"] for r in rows)}
         if name.endswith("_peaks"):
             entry["epilogue"] = "gr_lora_tpu_torch/csrc/peak_topm.cu"
         kernels.append(entry)

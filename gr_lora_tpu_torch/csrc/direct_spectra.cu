@@ -25,33 +25,23 @@
 // of W, imaginary parts for the rest), and the 128 x 128 f32 product tile is
 // staged in shared memory and folded there, so only fa / faw / hs reach
 // device memory.  The magnitudes and folds round each product and sum on
-// their own, as the plain version does.
+// their own, as the plain version does.  The block tile, the WMMA step and
+// the fold are dense_tile.cuh's, shared with K6 (chunk_spectra.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "dense_tile.cuh"
+
+using namespace dense_tile;
 
 namespace {
 
-constexpr int kFt = 128;           // frames per block (A rows)
-constexpr int kBins = 16;          // bins per block
-constexpr int kCols = 8 * kBins;   // W columns per block
-constexpr int kKc = 32;            // contraction rows per k step
-constexpr int kThreads = 256;      // 8 warps: 4 (32-frame group) x 2 (64 cols)
 constexpr int kLda = kKc + 8;      // bf16, multiple of 8
-constexpr int kLdb = kCols + 8;    // bf16, multiple of 8
-constexpr int kLdc = kCols + 4;    // f32, multiple of 4
 constexpr size_t kSmemAB =
     (size_t)kFt * kLda * 2 + (size_t)kKc * kLdb * 2;
-constexpr size_t kSmemC = (size_t)kFt * kLdc * 4;
 constexpr size_t kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
-
-__device__ __forceinline__ float cabs_rn(float re, float im) {
-    return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-}
 
 __global__ void __launch_bounds__(kThreads)
 direct_spectra_kernel(const float2* __restrict__ iq,
@@ -70,16 +60,9 @@ direct_spectra_kernel(const float2* __restrict__ iq,
     const float2* x = iq + lane * (long long)t_len;
     const long long wcols = 8LL * k;
     const __nv_bfloat16* wt = w + (long long)tile * kCols;
-    const int warp = threadIdx.x >> 5;
-    const int wr = warp >> 1;          // 32-frame group
-    const int wc = warp & 1;           // column half (64 of 128)
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
+    Acc acc[2][4];
+    zero(acc);
     for (int k0 = 0; k0 < 2 * n; k0 += kKc) {
         // A: the raw sample component of W's rows k0.., one bf16 rounding.
         const int part = k0 >= n;                      // 0 re, 1 im
@@ -102,51 +85,10 @@ direct_spectra_kernel(const float2* __restrict__ iq,
                 *reinterpret_cast<const uint4*>(wt + (k0 + kr) * wcols + c8 * 8);
         }
         __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kKc; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> af[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> bf[4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(af[i], as + (wr * 32 + i * 16) * kLda + kk,
-                                       kLda);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::load_matrix_sync(bf[j], bs + kk * kLdb + wc * 64 + j * 16,
-                                       kLdb);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-        }
+        mma_step(acc, as, kLda, bs);
         __syncthreads();
     }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * kLdc + wc * 64 + j * 16,
-                                    acc[i][j], kLdc, wmma::mem_row_major);
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < kFt * kBins; e += kThreads) {
-        const int fr = e / kBins, b = e % kBins;
-        const int f = f0 + fr;
-        if (f >= frames) continue;
-        const float* row = cs + fr * kLdc + b;
-        float m[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-            m[c] = cabs_rn(row[(2 * c) * kBins], row[(2 * c + 1) * kBins]);
-        const long long o = (lane * frames + f) * (long long)k + tile * kBins + b;
-        fa[o] = __fadd_rn(m[0], m[1]);
-        hs[o] = fmaxf(m[0], m[1]);
-        faw[o] = __fadd_rn(m[2], m[3]);
-    }
+    store_fold(acc, cs, fa, faw, hs, lane, frames, f0, tile, k);
 }
 
 }  // namespace

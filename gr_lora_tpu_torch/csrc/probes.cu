@@ -1,0 +1,293 @@
+// The two probe kernels: the tensor-core rate probe (P1) and the
+// tensor-core / CUDA-core overlap probe (P2).
+//
+// P1 replaces bench.py `_measure_mm_tf` (its Pallas kernel `kern`): `steps`
+// steps, each four bf16 products x[j] @ w ([rows, depth] @ [depth, width],
+// f32 accumulate) into slab j of one f32 scratch [rows, 4 width]; the output
+// is scratch[0, 0] + scratch[rows-1, 4 width - 1].
+// P2 replaces tools/overlap_probe.py `make` (its Pallas kernel `kern`):
+// `steps` steps of one product x @ w into a scratch [rows, width] (`mxu`),
+// of an independent f32 chain of `rounds` rounds over a slab (`vpu`), or
+// of both in that order (`both`); the output is scratch[0, 0] + slab[0]
+// (the scratch reads 0 where no product ran).  The chain rounds every
+// operation on its own, as its plain version does, so the two slabs agree
+// bit for bit.
+//
+// Bound on the card: tensor-core operations (P1: 16 x 4 x 2 rows depth
+// width; P2 `both`: the products, with the chain's f32 operations on the
+// CUDA cores beside them).  Design, weight-stationary as the TPU probes
+// are: a block owns a 128 x 64 tile of one product, stages its A rows
+// (128 x depth) and B columns (depth x 64) in shared memory once, and
+// every step runs the whole contraction from there (8 warps of 32 x 32,
+// WMMA m16n16k16 bf16, f32 accumulate).  A step's accumulators start from
+// the previous step's times 0 (no compiler may fold a float product by 0),
+// so every step's products feed the next and none is dead code; the last
+// step's tile is written to the scratch in device memory.  P2's three kinds
+// share one launch shape (grid, shared memory, staging), as the TPU
+// probe's kernels share their grid machinery; its chain elements are
+// spread over every thread of the grid and held in registers across the
+// steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int kTm = 128;           // product rows per block
+constexpr int kTn = 64;            // product columns per block
+constexpr int kThreads = 256;      // 8 warps: 4 (32 rows) x 2 (32 cols)
+constexpr int kLdb = kTn + 8;      // bf16 B stride, multiple of 8
+constexpr int kMaxPer = 16;        // P2 chain elements per thread, at most
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+size_t smem_bytes(int depth) {
+    return (size_t)kTm * (depth + 8) * 2 + (size_t)depth * kLdb * 2;
+}
+
+// Stage rows m0.. of a [rows, depth] and columns n0.. of w [depth, width].
+__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ a,
+                                      const __nv_bfloat16* __restrict__ w,
+                                      __nv_bfloat16* as, __nv_bfloat16* bs,
+                                      int m0, int n0, int depth, int width) {
+    const int lda = depth + 8;
+    const int a8 = depth / 8;
+    for (int e = threadIdx.x; e < kTm * a8; e += kThreads) {
+        const int r = e / a8, c8 = e % a8;
+        *reinterpret_cast<uint4*>(as + r * lda + c8 * 8) =
+            *reinterpret_cast<const uint4*>(a + (long long)(m0 + r) * depth +
+                                            c8 * 8);
+    }
+    for (int e = threadIdx.x; e < depth * (kTn / 8); e += kThreads) {
+        const int r = e / (kTn / 8), c8 = e % (kTn / 8);
+        *reinterpret_cast<uint4*>(bs + r * kLdb + c8 * 8) =
+            *reinterpret_cast<const uint4*>(w + (long long)r * width + n0 +
+                                            c8 * 8);
+    }
+}
+
+// One step: acc = 0 * acc + A B over the whole depth, this warp's 32 x 32.
+__device__ __forceinline__ void product_step(Acc (&acc)[2][2],
+                                             const __nv_bfloat16* as,
+                                             const __nv_bfloat16* bs,
+                                             int depth) {
+    const int warp = threadIdx.x >> 5;
+    const int wr = warp >> 1, wc = warp & 1;
+    const int lda = depth + 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int t = 0; t < acc[i][j].num_elements; ++t)
+                acc[i][j].x[t] = __fmul_rn(acc[i][j].x[t], 0.0f);
+    for (int kk = 0; kk < depth; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> af[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> bf[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+            wmma::load_matrix_sync(af[i], as + (wr * 32 + i * 16) * lda + kk,
+                                   lda);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            wmma::load_matrix_sync(bf[j], bs + kk * kLdb + wc * 32 + j * 16,
+                                   kLdb);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+                wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    }
+}
+
+// Write this warp's 32 x 32 of the block tile at (m0, n0) of `out` (ld).
+__device__ __forceinline__ void store_tile(Acc (&acc)[2][2], float* out,
+                                           long long ld, int m0, int n0) {
+    const int warp = threadIdx.x >> 5;
+    const int wr = warp >> 1, wc = warp & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            wmma::store_matrix_sync(
+                out + (m0 + wr * 32 + i * 16) * ld + n0 + wc * 32 + j * 16,
+                acc[i][j], (unsigned)ld, wmma::mem_row_major);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rate_probe_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  float* __restrict__ scratch, float* __restrict__ out,
+                  int rows, int depth, int width, int steps) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* bs = as + kTm * (depth + 8);
+    const int m0 = blockIdx.x * kTm, n0 = blockIdx.y * kTn;
+    const int j = blockIdx.z;                          // product (slab) j
+    stage(x + (long long)j * rows * depth, w, as, bs, m0, n0, depth, width);
+    __syncthreads();
+    Acc acc[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
+    for (int t = 0; t < steps; ++t) product_step(acc, as, bs, depth);
+    const long long ld = 4LL * width;
+    store_tile(acc, scratch + (long long)j * width, ld, m0, n0);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        // Two blocks each add one term to the zeroed output; a sum of two
+        // terms onto 0 is the same in either order.
+        if (j == 0 && m0 == 0 && n0 == 0) atomicAdd(out, scratch[0]);
+        if (j == 3 && m0 + kTm == rows && n0 + kTn == width)
+            atomicAdd(out, scratch[(rows - 1) * ld + ld - 1]);
+    }
+}
+
+__device__ __forceinline__ float maxp(float a, float b) {
+    // torch.maximum / jnp.maximum: NaN if either operand is NaN.
+    return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+
+// One round of tools/overlap_probe.py `vpu_chain`, rounded op by op.
+__device__ __forceinline__ float chain_round(float a) {
+    const float b = __fadd_rn(__fmul_rn(a, 1.0001f), 0.1f);
+    const float m = __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+    const float d = __fsub_rn(b, m);
+    const float g = __fsqrt_rn(__fadd_rn(
+        __fmul_rn(__fmul_rn(maxp(__fadd_rn(a, m), 0.1f), d), d), 1.0f));
+    return __fadd_rn(__fmul_rn(0.25f, __fadd_rn(m, g)),
+                     __fmul_rn(0.5f, maxp(m, g)));
+}
+
+template <bool kMxu, bool kVpu>
+__global__ void __launch_bounds__(kThreads)
+overlap_probe_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     float* __restrict__ scratch,
+                     const float* __restrict__ v0, float* __restrict__ vs,
+                     float* __restrict__ out, int depth, int width, int slab,
+                     int steps, int rounds) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* bs = as + kTm * (depth + 8);
+    const int m0 = blockIdx.x * kTm, n0 = blockIdx.y * kTn;
+    // Every kind stages the operands: the three share their grid, shared
+    // memory and staging, as the TPU probe's three kernels do.
+    stage(x, w, as, bs, m0, n0, depth, width);
+    __syncthreads();
+    // This thread's chain elements: e0 + i * stride.
+    const int stride = gridDim.x * gridDim.y * kThreads;
+    const int e0 = (blockIdx.y * gridDim.x + blockIdx.x) * kThreads +
+                   threadIdx.x;
+    float v[kMaxPer];
+#pragma unroll
+    for (int i = 0; i < kMaxPer; ++i) {
+        const int e = e0 + i * stride;
+        v[i] = e < slab ? v0[e] : 0.0f;
+    }
+    Acc acc[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
+    for (int t = 0; t < steps; ++t) {
+        if (kMxu) product_step(acc, as, bs, depth);
+        if (kVpu) {
+#pragma unroll
+            for (int i = 0; i < kMaxPer; ++i)
+                if (e0 + i * stride < slab)
+                    for (int r = 0; r < rounds; ++r) v[i] = chain_round(v[i]);
+        }
+    }
+    if (kMxu) store_tile(acc, scratch, width, m0, n0);
+    if (kVpu) {
+#pragma unroll
+        for (int i = 0; i < kMaxPer; ++i) {
+            const int e = e0 + i * stride;
+            if (e < slab) vs[e] = v[i];
+        }
+    }
+    __syncthreads();
+    if (e0 == 0) {                 // block (0, 0) owns scratch[0, 0] too
+        const float a = kMxu ? scratch[0] : 0.0f;
+        *out = __fadd_rn(a, kVpu ? v[0] : v0[0]);
+    }
+}
+
+template <bool kMxu, bool kVpu>
+int launch_overlap(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   float* scratch, const float* v0, float* vs, float* out,
+                   int rows, int depth, int width, int slab, int steps,
+                   int rounds, cudaStream_t stream) {
+    const size_t smem = smem_bytes(depth);
+    cudaError_t err = cudaFuncSetAttribute(
+        overlap_probe_kernel<kMxu, kVpu>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(rows / kTm, width / kTn);
+    overlap_probe_kernel<kMxu, kVpu><<<grid, kThreads, smem, stream>>>(
+        x, w, scratch, v0, vs, out, depth, width, slab, steps, rounds);
+    return (int)cudaGetLastError();
+}
+
+bool shape_ok(int rows, int depth, int width) {
+    return rows > 0 && rows % kTm == 0 && width > 0 && width % kTn == 0 &&
+           depth > 0 && depth % 16 == 0 && smem_bytes(depth) <= 232448;
+}
+
+}  // namespace
+
+extern "C" int grl_rate_probe(const void* x, const void* w, float* scratch,
+                              float* out, int rows, int depth, int width,
+                              int steps, void* stream) {
+    if (!shape_ok(rows, depth, width) || steps <= 0)
+        return cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(depth);
+    cudaError_t err = cudaFuncSetAttribute(
+        rate_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(rows / kTm, width / kTn, 4);
+    rate_probe_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        reinterpret_cast<const __nv_bfloat16*>(x),
+        reinterpret_cast<const __nv_bfloat16*>(w), scratch, out, rows, depth,
+        width, steps);
+    return (int)cudaGetLastError();
+}
+
+// kind: 1 = products only (mxu), 2 = chain only (vpu), 3 = both.
+extern "C" int grl_overlap_probe(const void* x, const void* w,
+                                 float* scratch, const float* v0, float* vs,
+                                 float* out, int rows, int depth, int width,
+                                 int slab, int steps, int rounds, int kind,
+                                 void* stream) {
+    if (!shape_ok(rows, depth, width) || steps <= 0 || rounds < 0 ||
+        slab <= 0 || slab > kMaxPer * (rows / kTm) * (width / kTn) * kThreads)
+        return cudaErrorInvalidValue;
+    const auto* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+    const auto* wb = reinterpret_cast<const __nv_bfloat16*>(w);
+    const auto s = (cudaStream_t)stream;
+    switch (kind) {
+        case 1:
+            return launch_overlap<true, false>(xb, wb, scratch, v0, vs, out,
+                                               rows, depth, width, slab,
+                                               steps, rounds, s);
+        case 2:
+            return launch_overlap<false, true>(xb, wb, scratch, v0, vs, out,
+                                               rows, depth, width, slab,
+                                               steps, rounds, s);
+        case 3:
+            return launch_overlap<true, true>(xb, wb, scratch, v0, vs, out,
+                                              rows, depth, width, slab,
+                                              steps, rounds, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}

@@ -29,10 +29,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gr_lora_tpu.config import (PYRAMID_OVERLAP_FACTOR,
-                                REQUIRED_PREAMBLE_CHIRPS, LoraConfig)
-from gr_lora_tpu.core.codec import decode
-from gr_lora_tpu.core.header import calc_sym_num
+from .. import native
+from ..config import (PYRAMID_OVERLAP_FACTOR, REQUIRED_PREAMBLE_CHIRPS,
+                      LoraConfig)
+from ..core.codec import decode
+from ..core.header import calc_sym_num
+from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve as resolve_device
 from ..models.modulator import packet_duration
 from ..models.pyramid import peak_lattice_fn
 from ..ops.cplx import to_ri
@@ -89,9 +92,7 @@ class TriggeredPyramidGateway:
                  tracker: str = "host",
                  scan_chunk_samples: int = _SCAN_CHUNK_SAMPLES,
                  mesh=None, sic: bool = False, split_repeats: bool = False,
-                 device: str | torch.device = "cpu"):
-        from gr_lora_tpu import native
-
+                 device: str | torch.device = DEFAULT_DEVICE):
         if mesh is not None:
             raise NotImplementedError("the device mesh is not ported")
         if sic:
@@ -102,11 +103,8 @@ class TriggeredPyramidGateway:
         if use_native is False:
             raise NotImplementedError("the Python PyramidTracker is not "
                                       "ported; the gateway tracks with "
-                                      "gr_lora_tpu.native")
-        if not native.available():
-            raise RuntimeError("gr_lora_tpu.native is unavailable (needs a "
-                               "C++ toolchain to build native/)")
-        self.device = torch.device(device)
+                                      "its native tracker")
+        self.device = resolve_device(device)
         self.channels = channels
         self.max_events = max_events
         self.event_batch = event_batch
@@ -347,7 +345,6 @@ class TriggeredPyramidGateway:
         t1 = time.perf_counter()
         self.wall["lattice"] += t1 - t0
 
-        from gr_lora_tpu import native
         bins, h, hs, valid = _unpack_peaks(packed)
         # Fresh tracker bank per batch (windows are self-contained); the
         # flush is host-only empty hops.

@@ -9,7 +9,7 @@ tracker:
   at once, ``[C, block + halo, 2]``, where the halo of ``N - hop`` samples
   completes the last hop windows; its peaks are packed to 8 bytes each.
 - **Sparse half (host)**: one native C++ tracker per channel
-  (``gr_lora_tpu.native.MultiPyramidTracker``), advanced by a whole
+  (``gr_lora_tpu_torch.native.MultiPyramidTracker``), advanced by a whole
   ``[C, H, M]`` peak block in one call.  Tracker state carries across
   blocks, so packets spanning block boundaries assemble as in one-shot
   mode.
@@ -36,8 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
-from gr_lora_tpu.core.codec import DecodeResult, decode
+from .. import native
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..core.codec import DecodeResult, decode
+from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve as resolve_device
 from ..models.pyramid import peak_lattice_fn
 from ..ops.cplx import to_ri
 
@@ -144,23 +147,18 @@ class PyramidGateway:
                  use_native: bool | None = None,
                  decode_payloads: bool = True, tracker: str = "host",
                  split_repeats: bool = False,
-                 device: str | torch.device = "cpu"):
-        from gr_lora_tpu import native
-
+                 device: str | torch.device = DEFAULT_DEVICE):
         if tracker != "host":
             raise NotImplementedError(f"tracker={tracker!r} is not ported "
                                       "(ROADMAP Queue 1, item 11)")
         if use_native is False:
             raise NotImplementedError("the Python tracker bank is not "
                                       "ported (ROADMAP Queue 1, item 3)")
-        if not native.available():
-            raise RuntimeError("gr_lora_tpu.native is unavailable (needs a "
-                               "C++ toolchain to build native/)")
         n = cfg.num_samples
         self.cfg = cfg
         self.channels = channels
         self.block_hops = block_hops
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._hop = n // PYRAMID_OVERLAP_FACTOR
         self._halo = n - self._hop
         self.lattice = _make_batched_lattice(
@@ -304,9 +302,9 @@ class MultiSFPyramidGateway:
                  backend: str = "xla", use_native: bool | None = None,
                  decode_payloads: bool = True, bw: float = 125e3,
                  tracker: str = "host", split_repeats: bool = False,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = DEFAULT_DEVICE):
         self.channels = channels
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gws: dict[int, PyramidGateway] = {}
         for sf in sfs:
             ldr = (1 << sf) / bw > 16e-3   # SX127x LDR rule (rx_file.grc)

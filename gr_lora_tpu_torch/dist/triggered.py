@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import REQUIRED_PREAMBLE_CHIRPS, LoraConfig
+from ..config import REQUIRED_PREAMBLE_CHIRPS, LoraConfig
 from ..ops.cplx import cmag
 from ..ops.dechirp import up_plan
 

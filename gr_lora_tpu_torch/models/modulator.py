@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from gr_lora_tpu.config import LoraConfig
+from ..config import LoraConfig
 from ..ops.chirp import chirp_tables
 
 NUM_PREAMBLE_CHIRPS = 8  # reference: mod_impl.h:30

@@ -6,7 +6,7 @@ PyTorch on the input's device: every overlapped hop (hop = symbol / 8) is
 dechirped and zoom-transformed twice (unwindowed and Kaiser-windowed,
 pyramid_demod_impl.cc:569-603), folded, local-max masked, thresholded and
 reduced to the top-M peaks per hop.  The sparse tracking runs on the host
-in the shared C++ tracker (gr_lora_tpu.native), fed the peak lists.
+in the port's C++ tracker (gr_lora_tpu_torch.native), fed the peak lists.
 
 Backends of :func:`peak_lattice_fn`, dispatched as the JAX package
 dispatches them (models/pyramid.py:83-193):
@@ -15,9 +15,10 @@ dispatches them (models/pyramid.py:83-193):
   the plain epilogue; beyond the JAX direct-plan size it becomes "fast";
 - ``"fast"``: the overlap-decomposed dense f32 spectra plus the plain
   epilogue;
-- ``"rdft"``, ``"direct"``, ``"fastp"``: the dense spectra of the
-  hand-written kernels K3 (ops/rdft_spectra.py), K4b (ops/direct.py) and
-  K5 (ops/overlap_spectra.py), followed by the peak epilogue (the
+- ``"rdft"``, ``"direct"``, ``"fastp"``, ``"pallas"``: the dense spectra
+  of the hand-written kernels K3 (ops/rdft_spectra.py), K4b
+  (ops/direct.py), K5 (ops/overlap_spectra.py) and K6
+  (ops/chunk_spectra.py), followed by the peak epilogue (the
   ``peak_topm`` kernel on the card, the plain one on the CPU);
 - ``"fused"``: the peak-lattice kernels, split over SF as the JAX
   dispatch splits them — K1 (ops/rdft_peaks.py) where
@@ -26,8 +27,7 @@ dispatches them (models/pyramid.py:83-193):
   ``overlap_peaks_supported``, else "xla";
 - ``"fused_direct"``: as "fused" without K1.
 
-On a CPU tensor every kernel module runs its plain version.  ``"pallas"``
-(the JAX round-1 front end, K6) is not ported yet.
+On a CPU tensor every kernel module runs its plain version.
 """
 
 from __future__ import annotations
@@ -36,7 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from .. import native
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve as resolve_device
+from ..ops.chunk_spectra import ChunkSpectra
 from ..ops.cplx import to_ri
 from ..ops.dechirp import fold_spectra, frame_signal, pyramid_plan
 from ..ops.direct import DirectPeaks, DirectSpectra
@@ -52,11 +56,11 @@ from ..ops.rdft_spectra import RdftSpectra
 #: the fused dispatch test the same size.
 _DIRECT_MAX_ELEMS = 1 << 23
 
-BACKENDS = ("xla", "fast", "rdft", "direct", "fastp", "fused",
+BACKENDS = ("xla", "fast", "rdft", "direct", "fastp", "pallas", "fused",
             "fused_direct")
 #: The dense-spectra kernel module of each kernel backend.
 _FRONTS = {"rdft": RdftSpectra, "direct": DirectSpectra,
-           "fastp": OverlapSpectra}
+           "fastp": OverlapSpectra, "pallas": ChunkSpectra}
 
 
 def num_hops_for(cfg: LoraConfig, num_samples_total: int) -> int:
@@ -68,7 +72,7 @@ def num_hops_for(cfg: LoraConfig, num_samples_total: int) -> int:
 class DenseLattice(nn.Module):
     """Dense spectra followed by the peak epilogue: "xla" (explicit
     frames) and "fast" (overlap decomposition) in plain f32 PyTorch, or
-    the kernel backends' ``front`` module (K3, K4b or K5), whose spectra
+    the kernel backends' ``front`` module (K3, K4b, K5 or K6), whose spectra
     on the card go to the ``peak_topm`` kernel."""
 
     def __init__(self, cfg: LoraConfig, num_hops: int, max_peaks: int,
@@ -149,10 +153,6 @@ def peak_lattice_fn(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
     edge bands (:269).  The module is built on the CPU: move it with
     ``.to(device)``.  ``block_hops`` bounds the resident spectra as in
     the JAX package; the K1 and K4 lattices ignore it, as there."""
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend 'pallas' (K6, pallas_frontend.make_pallas_spectra) is "
-            "not ported yet: ROADMAP Queue 2")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}: {backend!r}")
     n = cfg.num_samples
@@ -177,32 +177,28 @@ def pyramid_demodulate(iq, cfg: LoraConfig, max_peaks: int = 16,
                        flush: bool = True, use_native: bool | None = None,
                        backend: str = "xla", grace: int = 0,
                        split_repeats: bool = False, quantize: str = "round",
-                       device: str | torch.device | None = None
+                       device: str | torch.device = DEFAULT_DEVICE
                        ) -> list[np.ndarray]:
     """IQ stream -> one uint16 symbol vector per (colliding) packet.
 
     ``iq`` is complex [T], float32 [T, 2] (numpy) or a float32 [T, 2]
-    tensor; the lattice runs on ``device`` (default: the tensor's device,
-    the CPU for numpy input).  Tracking uses the native C++ tracker, which
-    is behavior-identical to the JAX package's Python tracker; the Python
-    tracker is not ported (``use_native=False`` raises).
+    tensor; the lattice runs on ``device`` (the card unless the caller
+    passes ``device="cpu"``).  Tracking uses the port's native C++
+    tracker, which is behavior-identical to the JAX package's Python
+    tracker; the Python tracker is not ported (``use_native=False``
+    raises).
     """
-    from gr_lora_tpu import native
-
     if use_native is False:
         raise NotImplementedError("the Python PyramidTracker is not ported; "
-                                  "the port tracks with gr_lora_tpu.native")
-    if not native.available():
-        raise RuntimeError("gr_lora_tpu.native is unavailable (needs a C++ "
-                           "toolchain to build native/)")
+                                  "the port tracks with its native tracker")
+    dev = resolve_device(device)
     if isinstance(iq, torch.Tensor):
-        x = iq.to(device or iq.device, torch.float32)
+        x = iq.to(dev, torch.float32)
     else:
         a = np.asarray(iq)
         if np.iscomplexobj(a):
             a = to_ri(a)
-        x = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        x = x.to(device or "cpu")
+        x = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     nh = num_hops_for(cfg, x.shape[0])
     if nh == 0:
         return []
@@ -240,19 +236,14 @@ class StreamingPyramidDemodulator:
                  max_peaks: int = 16, grace: int = 0,
                  use_native: bool | None = None, backend: str = "xla",
                  split_repeats: bool = False, quantize: str = "round",
-                 device: str | torch.device = "cpu"):
-        from gr_lora_tpu import native
-
+                 device: str | torch.device = DEFAULT_DEVICE):
         if use_native is False:
             raise NotImplementedError("the Python PyramidTracker is not "
-                                      "ported; the port tracks with "
-                                      "gr_lora_tpu.native")
-        if not native.available():
-            raise RuntimeError("gr_lora_tpu.native is unavailable (needs a "
-                               "C++ toolchain to build native/)")
+                                      "ported; the port tracks with its "
+                                      "native tracker")
         self.cfg = cfg
         self.block_hops = block_hops
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         n = cfg.num_samples
         self._hop = n // PYRAMID_OVERLAP_FACTOR
         self._overlap = n - self._hop     # samples shared between blocks

@@ -4,8 +4,11 @@ The sources have a plain C interface.  Each is compiled with its own
 ``nvcc`` for ``sm_90a``, all at once, and the objects are linked into one
 shared library under ``gr_lora_tpu_torch/_build/`` (listed in
 ``.gitignore``), then loaded with ctypes.  The library is built
-at first use and rebuilt whenever a source is newer than it, so a fresh
-checkout builds everything on its first kernel launch.  Every entry point
+at first use and rebuilt whenever a source or a header they share
+(``csrc/*.cuh``) is newer than it, so a fresh checkout builds everything
+on its first kernel launch.  The host tracker's C++ (``csrc/host/``) is
+not part of it: ``gr_lora_tpu_torch/native`` builds that with the host
+compiler.  Every entry point
 takes its pointers and the CUDA stream as ``c_void_p`` and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
 
@@ -41,6 +44,9 @@ SIGNATURES = {
     "grl_overlap_spectra": [_P] * 8 + [_I] * 7 + [_P],
     "grl_direct_spectra": [_P] * 5 + [_I] * 6 + [_P],
     "grl_peak_topm": [_P] * 7 + [_LL, _I, _I, _F, _P],
+    "grl_chunk_spectra": [_P] * 5 + [_I] * 5 + [_P],
+    "grl_rate_probe": [_P] * 4 + [_I] * 4 + [_P],
+    "grl_overlap_probe": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -68,7 +74,8 @@ def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(p.stat().st_mtime > built for p in sources())
+    return any(p.stat().st_mtime > built
+               for p in (*sources(), *CSRC.glob("*.cuh")))
 
 
 def _run_all(cmds: list[list[str]]) -> None:

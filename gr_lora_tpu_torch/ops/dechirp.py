@@ -17,7 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gr_lora_tpu.config import LoraConfig
+from ..config import LoraConfig
 from .chirp import chirp_tables
 from .cplx import cmag
 from .dft import ZoomDft

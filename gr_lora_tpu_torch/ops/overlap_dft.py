@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from .cplx import as_complex, as_ri, cmag, cmul
 from .dechirp import kaiser_window
 

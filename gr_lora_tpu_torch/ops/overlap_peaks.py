@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from .overlap_spectra import OverlapSpectra
 from .peak_epilogue import launch_topm, peaks_plain
 

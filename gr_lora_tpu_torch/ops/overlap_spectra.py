@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .overlap_dft import OverlapPlan, spectra_from_chunks
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from gr_lora_tpu.config import LoraConfig
+from ..config import LoraConfig
 from .peak_epilogue import launch_topm, peaks_plain
 from .rdft_spectra import _PAD, RdftSpectra
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR, LoraConfig
+from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .chirp import chirp_tables
 from .dechirp import frame_signal, kaiser_window

@@ -18,6 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve as resolve_device
+
 __all__ = ["DeviceRing"]
 
 
@@ -31,10 +34,11 @@ class DeviceRing:
     """
 
     def __init__(self, channels: int, cap: int, history: int = 0,
-                 width: int = 2, device: str | torch.device = "cpu"):
+                 width: int = 2,
+                 device: str | torch.device = DEFAULT_DEVICE):
         self.channels = channels
         self.width = width
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cap = max(1 << int(np.ceil(np.log2(max(cap, 1024)))), 1024)
         self._buf = torch.zeros((channels, self.cap, width),
                                 dtype=torch.float32, device=self.device)

@@ -4,22 +4,27 @@ The fixtures are those of tests/test_collision_gateway.py.  The port's
 gateway runs backend "fused" (K1 / K2, here through their plain
 versions); the JAX gateway runs "xla" to keep CPU time down.  Both must
 decode the same (channel, sf, payload) set with crc_ok, at positions one
-hop apart at most, and nothing on the idle channel.
+hop apart at most, and nothing on the idle channel.  The port takes its own
+config and runs on the CPU here (``device="cpu"``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gr_lora_tpu.config import PYRAMID_OVERLAP_FACTOR
-from gr_lora_tpu.core.codec import encode
+from gr_lora_tpu_torch.config import PYRAMID_OVERLAP_FACTOR
+from gr_lora_tpu_torch.core.codec import encode
 from gr_lora_tpu.dist.collision_gateway import \
     TriggeredPyramidGateway as JaxGateway
 from gr_lora_tpu_torch.dist.collision_gateway import TriggeredPyramidGateway
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.pipeline.device_ring import DeviceRing
-from test_collision_gateway import BASE, PDU1, PDU2, _golden_collision
+from test_collision_gateway import BASE as JAX_BASE
+from test_collision_gateway import PDU1, PDU2, _golden_collision
+from test_torch_core import port_config
+
+BASE = port_config(JAX_BASE)
 
 
 def _decoded(pkts):
@@ -38,8 +43,8 @@ def _run(gw, ri, step):
     return pkts + gw.flush()
 
 
-def _three_channel_fixture(cfg8, cfg9):
-    coll = _golden_collision(cfg8)
+def _three_channel_fixture(cfg9):
+    coll = _golden_collision(JAX_BASE)
     pkt9 = 0.15 * modulate(encode(bytes([0xDE, 0xAD, 0xBE, 0xEF]), cfg9),
                            cfg9, pad_front=0, pad_back=0)
     channels, total = 3, 200_000
@@ -54,10 +59,10 @@ def _three_channel_fixture(cfg8, cfg9):
 
 def test_gateway_matches_jax_gateway():
     kw = dict(sfs=(7, 8, 9), max_payload_len=16, scan_chunk_samples=1 << 16)
-    gw = TriggeredPyramidGateway(BASE, 3, backend="fused", **kw)
-    ri = _three_channel_fixture(gw.sf_states[8].cfg, gw.sf_states[9].cfg)
+    gw = TriggeredPyramidGateway(BASE, 3, backend="fused", device="cpu", **kw)
+    ri = _three_channel_fixture(gw.sf_states[9].cfg)
     ours = _decoded(_run(gw, ri, 37_000))
-    ref = _decoded(_run(JaxGateway(BASE, 3, backend="xla", **kw), ri,
+    ref = _decoded(_run(JaxGateway(JAX_BASE, 3, backend="xla", **kw), ri,
                         37_000))
 
     assert set(ours) == set(ref), (sorted(ours), sorted(ref))
@@ -82,8 +87,8 @@ def test_cotimed_channels_not_suppressed():
     channels = 2
     gw = TriggeredPyramidGateway(BASE, channels, sfs=(8,), backend="fused",
                                  max_payload_len=16,
-                                 scan_chunk_samples=1 << 16)
-    coll = _golden_collision(gw.sf_states[8].cfg)
+                                 scan_chunk_samples=1 << 16, device="cpu")
+    coll = _golden_collision(JAX_BASE)
     total = 150_000
     iq = np.zeros((channels, total), np.complex64)
     for c in range(channels):
@@ -102,7 +107,7 @@ def test_cotimed_channels_not_suppressed():
                                 dict(use_native=False)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
-        TriggeredPyramidGateway(BASE, 1, sfs=(8,), **kw)
+        TriggeredPyramidGateway(BASE, 1, sfs=(8,), device="cpu", **kw)
 
 
 def test_device_ring_matches_jax_ring():
@@ -111,8 +116,8 @@ def test_device_ring_matches_jax_ring():
     from gr_lora_tpu.pipeline.device_ring import DeviceRing as JaxRing
 
     rng = np.random.default_rng(5)
-    ours, ref = DeviceRing(3, 1024, history=100), JaxRing(3, 1024,
-                                                         history=100)
+    ours = DeviceRing(3, 1024, history=100, device="cpu")
+    ref = JaxRing(3, 1024, history=100)
     for lg, cut in [(700, 300), (900, 600), (2500, 100), (40, 2000)]:
         chunk = rng.standard_normal((3, lg, 2)).astype(np.float32)
         ours.append(chunk)

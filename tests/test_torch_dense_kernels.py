@@ -28,8 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from gr_lora_tpu import LoraConfig
-from gr_lora_tpu.core.codec import encode
+from gr_lora_tpu_torch.core.codec import encode
 from gr_lora_tpu.models.pyramid import peak_lattice_fn as jax_lattice_fn
 from gr_lora_tpu.ops.pallas_direct import (_weights, make_direct_peaks,
                                            make_direct_spectra)
@@ -38,6 +37,7 @@ from gr_lora_tpu.ops.pallas_rdft import make_rdft_spectra
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.models.pyramid import (BlockedLattice, DenseLattice,
                                               num_hops_for, peak_lattice_fn)
+from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.ops.direct import (DirectPeaks, DirectSpectra,
                                           direct_weights)
@@ -46,14 +46,17 @@ from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
 from gr_lora_tpu_torch.ops.peak_epilogue import compare_peaks, peaks_plain
 from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
 from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
+from test_torch_core import config_pair
 
 GRID = [(7, 8), (8, 8), (7, 2)]
 MAX_HOPS = 256
 
 
 def _cfg(sf, ff, p=2):
-    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False, explicit_header=True,
-                      payload_len=4, p=p, fft_factor=ff, threshold=5.0)
+    """(JAX config, port config)."""
+    return config_pair(sf=sf, cr=1, crc=True, ldr=False,
+                       explicit_header=True, payload_len=4, p=p,
+                       fft_factor=ff, threshold=5.0)
 
 
 def _signal(cfg, seed):
@@ -88,25 +91,25 @@ def _peaks(spectra, cfg, m=8):
 
 @pytest.mark.parametrize("sf,ff", GRID)
 def test_rdft_spectra_plain_matches_jax(sf, ff):
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     iq, nh = _signal(cfg, seed=sf * ff)
     ours = RdftSpectra(cfg, nh)(torch.from_numpy(iq))
-    flip = _jax(make_rdft_spectra(cfg, nh, rev="flip", interpret=True), iq)
+    flip = _jax(make_rdft_spectra(jcfg, nh, rev="flip", interpret=True), iq)
     _assert_close(ours, flip, 2e-4)
     ref = _peaks(flip, cfg)
     assert ref[3].any()
     compare_peaks(ref, _peaks(ours, cfg), 1e-4, faw=flip[1],
                   threshold=cfg.threshold)
-    matmul = _jax(make_rdft_spectra(cfg, nh, interpret=True), iq)
+    matmul = _jax(make_rdft_spectra(jcfg, nh, interpret=True), iq)
     _assert_close(ours, matmul, 5e-3)
 
 
 @pytest.mark.parametrize("sf,ff", GRID)
 def test_direct_spectra_plain_matches_jax(sf, ff):
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     iq, nh = _signal(cfg, seed=sf * ff + 1)
     ours = DirectSpectra(cfg, nh)(torch.from_numpy(iq))
-    ref = _jax(make_direct_spectra(cfg, nh, interpret=True), iq)
+    ref = _jax(make_direct_spectra(jcfg, nh, interpret=True), iq)
     _assert_close(ours, ref, 1e-5)
     compare_peaks(_peaks(ref, cfg), _peaks(ours, cfg), 1e-4, faw=ref[1],
                   threshold=cfg.threshold)
@@ -116,8 +119,8 @@ def test_direct_spectra_plain_matches_jax(sf, ff):
 def test_direct_weights_equal_jax_bits(sf, ff):
     """W is built as the JAX kernel builds it (float64 product, f32,
     bf16), in its ``kt = 16`` column layout: equal bit for bit."""
-    cfg = _cfg(sf, ff)
-    ref = np.asarray(_weights(cfg, 16)).view(np.uint16)
+    jcfg, cfg = _cfg(sf, ff)
+    ref = np.asarray(_weights(jcfg, 16)).view(np.uint16)
     ours = direct_weights(sf, cfg.p, ff, float(cfg.beta))
     assert ours.dtype == torch.bfloat16 and ours.shape == ref.shape
     assert np.array_equal(ours.view(torch.int16).numpy().view(np.uint16), ref)
@@ -127,9 +130,9 @@ def test_direct_weights_equal_jax_bits(sf, ff):
 def test_direct_peaks_plain_matches_jax(sf, ff):
     """K4's per-tile top-M with the one-bin tile extension, merged by a
     cross-tile top_k, picks the peaks of the dense epilogue."""
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     iq, nh = _signal(cfg, seed=sf + 3)
-    ref = _jax(make_direct_peaks(cfg, nh, 8, interpret=True), iq)
+    ref = _jax(make_direct_peaks(jcfg, nh, 8, interpret=True), iq)
     x = torch.from_numpy(iq)
     mod = DirectPeaks(cfg, nh, 8)
     ours = mod(x)
@@ -140,10 +143,10 @@ def test_direct_peaks_plain_matches_jax(sf, ff):
 
 @pytest.mark.parametrize("sf,ff", GRID)
 def test_overlap_spectra_plain_matches_jax(sf, ff):
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     iq, nh = _signal(cfg, seed=sf * ff + 2)
     ours = OverlapSpectra(cfg, nh)(torch.from_numpy(iq))
-    ref = _jax(make_overlap_spectra(cfg, nh, interpret=True), iq)
+    ref = _jax(make_overlap_spectra(jcfg, nh, interpret=True), iq)
     _assert_close(ours, ref, 1e-5)
     compare_peaks(_peaks(ref, cfg), _peaks(ours, cfg), 1e-4, faw=ref[1],
                   threshold=cfg.threshold)
@@ -152,7 +155,7 @@ def test_overlap_spectra_plain_matches_jax(sf, ff):
 def test_plain_versions_leave_tf32_setting_alone():
     """The plain bf16 products read the process's TF32 setting and never
     write it (TF32 leaves bf16 operands exact)."""
-    cfg = _cfg(7, 2)
+    _, cfg = _cfg(7, 2)
     x = torch.from_numpy(_signal(cfg, seed=5)[0])
     prev = torch.backends.cuda.matmul.allow_tf32
     for flag in (True, False):
@@ -160,15 +163,16 @@ def test_plain_versions_leave_tf32_setting_alone():
         try:
             a = RdftSpectra(cfg, 16)(x)
             b = DirectSpectra(cfg, 16)(x)
+            c = ChunkSpectra(cfg, 16)(x)
             RdftPeaks(cfg, 16)(x)
             DirectPeaks(cfg, 16)(x)
             assert torch.backends.cuda.matmul.allow_tf32 is flag
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
         if flag:
-            first = (a, b)
+            first = (*a, *b, *c)
         else:
-            for u, v in zip((*first[0], *first[1]), (*a, *b)):
+            for u, v in zip(first, (*a, *b, *c)):
                 assert torch.equal(u, v)
 
 
@@ -195,7 +199,8 @@ def _kind(mod):
     return {RdftPeaks: "K1", DirectPeaks: "K4", OverlapPeaks: "K2"}[type(mod)]
 
 
-_ALL = ("xla", "fast", "rdft", "direct", "fastp", "fused", "fused_direct")
+_ALL = ("xla", "fast", "rdft", "direct", "fastp", "pallas", "fused",
+        "fused_direct")
 #: Large plans build no dense weight block here (the direct one is 134 MB
 #: at SF9 x ff 8): their cases take the backends without one.
 _NO_DENSE_W = ("xla", "fast", "fastp", "fused", "fused_direct")
@@ -213,11 +218,21 @@ def test_lattice_dispatch_matches_jax(case, backend):
     back to dense 'xla' (then 'fast') where the overlap kernel's tiling
     does not apply, and block_hops honoured by every dense backend."""
     sf, ff, p, hops, block = case
-    cfg = _cfg(sf, ff, p)
-    ref = _jax_kind(jax_lattice_fn(cfg, hops, 8, backend, block))
+    jcfg, cfg = _cfg(sf, ff, p)
+    ref = _jax_kind(jax_lattice_fn(jcfg, hops, 8, backend, block))
     assert _kind(peak_lattice_fn(cfg, hops, 8, backend, block)) == ref
 
 
 def test_pallas_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        peak_lattice_fn(_cfg(7, 8), 16, 8, "pallas")
+    """Backend "pallas" builds the dense lattice on K6's front end and is
+    blocked like "fastp" (the dispatch cases above hold it against the
+    JAX dispatch)."""
+    _, cfg = _cfg(7, 8)
+    mod = peak_lattice_fn(cfg, 16, 8, "pallas")
+    assert isinstance(mod, DenseLattice) and type(mod.front) is ChunkSpectra
+    blocked = peak_lattice_fn(cfg, 300, 8, "pallas", block_hops=128)
+    fastp = peak_lattice_fn(cfg, 300, 8, "fastp", block_hops=128)
+    assert isinstance(blocked, BlockedLattice)
+    assert type(blocked.inner.front) is ChunkSpectra
+    assert (blocked.block_hops, blocked.seg, blocked.inner.num_hops) == \
+        (fastp.block_hops, fastp.seg, fastp.inner.num_hops)

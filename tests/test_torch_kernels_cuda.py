@@ -6,22 +6,23 @@ an NVIDIA GPU and nvcc, run ``python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py`` (the file imports no JAX; the repo's
 conftest.py does, and such a machine need not have it).
 
-Tolerances: K1, K3, K4b and K4's plain versions are the same
+Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
 rtol 1e-3; a peak may differ only where an f32 tie decides it, see
-peak_epilogue.compare_peaks; the dense K3 / K4b spectra within 1e-4 of
-their largest value).  K2, K5 and the epilogue round as their plain
-versions do and must equal them exactly.
+peak_epilogue.compare_peaks; the dense K3 / K4b / K6 spectra within 1e-4
+of their largest value; P1's value rtol 1e-3).  K2, K5, the epilogue and
+P2's chain round as their plain versions do and must equal them exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gr_lora_tpu import LoraConfig
-from gr_lora_tpu.core.codec import encode
+from gr_lora_tpu_torch import LoraConfig
+from gr_lora_tpu_torch.core.codec import decode, encode
 from gr_lora_tpu_torch.models.modulator import modulate
-from gr_lora_tpu_torch.models.pyramid import num_hops_for
+from gr_lora_tpu_torch.models.pyramid import num_hops_for, pyramid_demodulate
+from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
 from gr_lora_tpu_torch.ops.overlap_dft import spectra_from_chunks
@@ -29,6 +30,8 @@ from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
 from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
 from gr_lora_tpu_torch.ops.peak_epilogue import (compare_peaks, launch_topm,
                                                  peaks_plain)
+from gr_lora_tpu_torch.ops.probes import (OverlapProbe, RateProbe,
+                                          probe_inputs)
 from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
 from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
 
@@ -127,7 +130,8 @@ def test_topm_kernel_equals_plain(dev, m):
 def test_kernel_wrappers_reject_bad_input(dev):
     cfg = _cfg(7)
     bad = torch.zeros((4096, 2), dtype=torch.float64, device=dev)
-    for mod in (RdftPeaks(cfg, 16, 8), DirectSpectra(cfg, 16)):
+    for mod in (RdftPeaks(cfg, 16, 8), DirectSpectra(cfg, 16),
+                ChunkSpectra(cfg, 16)):
         with pytest.raises(ValueError):
             mod.to(dev)(bad)
     with pytest.raises(ValueError):
@@ -144,11 +148,11 @@ def _dense_close(kern, plain, rtol):
         assert float((a - b).abs().max()) <= rtol * scale
 
 
-@pytest.mark.parametrize("cls", [RdftSpectra, DirectSpectra])
+@pytest.mark.parametrize("cls", [RdftSpectra, DirectSpectra, ChunkSpectra])
 @pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8), (7, 2)])
 def test_dense_bf16_kernels_match_plain(dev, cls, sf, ff):
-    """K3 and K4b: the dense folds within 1e-4 of their largest value, and
-    the same peaks up to f32 ties."""
+    """K3, K4b and K6: the dense folds within 1e-4 of their largest value,
+    and the same peaks up to f32 ties."""
     cfg = _cfg(sf, ff)
     iq, total = _lanes(cfg, 3, sf + 1)
     mod = cls(cfg, num_hops_for(cfg, total)).to(dev)
@@ -197,7 +201,8 @@ def test_overlap_spectra_kernel_equals_plain(dev, sf, ff, p):
 @pytest.mark.parametrize("backend,cls", [("rdft", RdftSpectra),
                                          ("direct", DirectSpectra),
                                          ("fused_direct", DirectPeaks),
-                                         ("fastp", OverlapSpectra)])
+                                         ("fastp", OverlapSpectra),
+                                         ("pallas", ChunkSpectra)])
 def test_always_on_gateway_on_card_decodes_golden(dev, backend, cls):
     """The always-on gateway on the card, fed numpy chunks: both golden
     PDUs on both channels, through the backend's kernel."""
@@ -256,3 +261,61 @@ def test_gateway_on_card_decodes_golden(dev):
     for c in range(2):
         assert (c, PDU1) in got and (c, PDU2) in got, got
     assert gw.lattice(8).launches > 0
+
+
+def test_chunk_spectra_kernel_ragged_frames(dev):
+    """K6 on a frame count that is no multiple of its 128-frame tile, on
+    a stream shorter than its chunk rows (zero-padded), with three lanes:
+    within 1e-4 of the plain version; the padded tail gives zero spectra."""
+    cfg = _cfg(7, 2)
+    iq, total = _lanes(cfg, 3, 11)
+    nh = num_hops_for(cfg, total) + 40
+    mod = ChunkSpectra(cfg, nh).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    _dense_close(kern, mod.plain(x), 1e-4)
+    assert float(kern[0][:, -30:].abs().max()) == 0.0
+
+
+def test_rate_probe_matches_plain(dev):
+    """P1 at the main path's dot shape: its value within rtol 1e-3 of the
+    plain version (another summation order), launches counted."""
+    x, w, _ = (t.to(dev) for t in probe_inputs(256, 512, 4352))
+    probe = RateProbe()
+    out = probe(x, w)
+    assert probe.launches == 1 and out.shape == (1, 1)
+    torch.testing.assert_close(out, probe.plain(x, w), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "vpu", "both"])
+def test_overlap_probe_matches_plain(dev, kind):
+    """P2 over 4 steps (the chain stays finite): its slab equal to the
+    plain version bit for bit, its product within rtol 1e-3."""
+    x, w, v0 = (t.to(dev) for t in probe_inputs(256, 512, 4352, batch=1))
+    probe = OverlapProbe(kind, steps=4)
+    out, acc, vs = probe.kernel(x[0], w, v0)
+    ref_out, ref_acc, ref_vs = probe.plain(x[0], w, v0)
+    assert torch.equal(vs, ref_vs) and bool(torch.isfinite(vs).all())
+    if acc is not None:
+        torch.testing.assert_close(acc, ref_acc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, ref_out, rtol=1e-3, atol=1e-3)
+    probe(x[0], w, v0)
+    assert probe.launches == 1
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_pyramid_demodulate_defaults_to_card(dev, backend):
+    """With no device argument the collision decoder runs on the card."""
+    cfg = LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
+                     payload_len=8, p=2, fft_factor=8, threshold=5.0)
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg)
+    off2 = 1000 + 16 * n + 4 * n // 8 + 204
+    iq = np.zeros(off2 + len(p2) + 1000, np.complex64)
+    iq[1000:1000 + len(p1)] += p1
+    iq[off2:off2 + len(p2)] += p2
+    syms = pyramid_demodulate(iq, cfg, backend=backend)
+    pdus = {bytes(r.payload).hex() for r in (decode(s, cfg) for s in syms)
+            if r.ok}
+    assert {PDU1, PDU2} <= pdus

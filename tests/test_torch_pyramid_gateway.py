@@ -6,14 +6,16 @@ two-packet collision on every channel, SF8 x ff 8), at 2 channels and
 256-hop blocks.  Per kernel backend the port's ``PyramidGateway`` (plain
 versions of K3, K4b, K4 and K5 here) and the JAX one (its Pallas kernels
 in interpret mode) must emit the same packets: channel, preamble
-position, symbols, and both golden PDUs with CRC on every channel.
+position, symbols, and both golden PDUs with CRC on every channel.  The
+port takes its own config (``port_config`` of the JAX fixture's) and runs
+on the CPU here (``device="cpu"``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gr_lora_tpu.core.codec import decode, encode
+from gr_lora_tpu_torch.core.codec import decode, encode
 from gr_lora_tpu.dist.pyramid_gateway import \
     MultiSFPyramidGateway as JaxMultiSF
 from gr_lora_tpu.dist.pyramid_gateway import PyramidGateway as JaxGateway
@@ -24,12 +26,18 @@ from gr_lora_tpu_torch.models.pyramid import (StreamingPyramidDemodulator,
                                               pyramid_demodulate)
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from test_multi_sf_pyramid import _clean_payload
-from test_pyramid import CFG as PYR_CFG, _N as PYR_N, _collision
-from test_pyramid_gateway import CFG, PDU_1, PDU_2, _N, _collision_matrix
+from test_pyramid import CFG as JAX_PYR_CFG, _N as PYR_N, _collision
+from test_pyramid_gateway import CFG as JAX_CFG
+from test_pyramid_gateway import PDU_1, PDU_2, _N, _collision_matrix
+from test_torch_core import port_config
+
+CFG = port_config(JAX_CFG)
+PYR_CFG = port_config(JAX_PYR_CFG)
+CPU = dict(device="cpu")
 
 CHANNELS = 2
 TOTAL = 1000 + CHANNELS * 4 * _N + 76 * _N
-KERNEL_BACKENDS = ["rdft", "direct", "fused_direct", "fastp"]
+KERNEL_BACKENDS = ["rdft", "direct", "fused_direct", "fastp", "pallas"]
 
 
 def _packets(pkts):
@@ -56,8 +64,9 @@ def matrix():
 @pytest.mark.parametrize("backend", KERNEL_BACKENDS)
 def test_gateway_matches_jax_gateway(matrix, backend):
     kw = dict(block_hops=256, max_peaks=8, backend=backend)
-    ours = _packets(_run(PyramidGateway(CFG, CHANNELS, **kw), matrix))
-    ref = _packets(_run(JaxGateway(CFG, CHANNELS, **kw), matrix))
+    ours = _packets(_run(PyramidGateway(CFG, CHANNELS, **CPU, **kw),
+                         matrix))
+    ref = _packets(_run(JaxGateway(JAX_CFG, CHANNELS, **kw), matrix))
     assert ours == ref
     for c in range(CHANNELS):
         assert {PDU_1, PDU_2} <= {p[3] for p in ours if p[0] == c}, ours
@@ -68,10 +77,10 @@ def test_chunked_feed_matches_one_shot(matrix, as_tensor):
     """Small chunks (packets straddle block boundaries), fed as numpy or
     as tensors, give the one-shot packets."""
     one = PyramidGateway(CFG, CHANNELS, block_hops=512, backend="rdft",
-                         decode_payloads=False)
+                         decode_payloads=False, **CPU)
     ref = _packets(_run(one, matrix))
     small = PyramidGateway(CFG, CHANNELS, block_hops=128, backend="rdft",
-                           decode_payloads=False)
+                           decode_payloads=False, **CPU)
     ri = torch.from_numpy(matrix) if as_tensor else matrix
     got = _packets(_run(small, ri, step=3000))
     assert [(c, s) for c, _, s, _ in got] == [(c, s) for c, _, s, _ in ref]
@@ -80,7 +89,7 @@ def test_chunked_feed_matches_one_shot(matrix, as_tensor):
 
 def test_gateway_complex_input_stats_and_bytes(matrix):
     gw = PyramidGateway(CFG, CHANNELS, block_hops=256, max_peaks=8,
-                        backend="fastp")
+                        backend="fastp", **CPU)
     cplx = matrix[..., 0] + 1j * matrix[..., 1]
     got = _packets(gw.feed(cplx) + gw.flush())
     assert {PDU_1, PDU_2} <= {p[3] for p in got}
@@ -97,12 +106,12 @@ def test_gateway_complex_input_stats_and_bytes(matrix):
                                 dict(use_native=False)])
 def test_gateway_options_not_ported(kw):
     with pytest.raises(NotImplementedError):
-        PyramidGateway(CFG, 2, **kw)
+        PyramidGateway(CFG, 2, **CPU, **kw)
 
 
 def test_gateway_rejects_wrong_channel_count(matrix):
     with pytest.raises(ValueError):
-        PyramidGateway(CFG, 3, block_hops=256).feed(matrix)
+        PyramidGateway(CFG, 3, block_hops=256, **CPU).feed(matrix)
 
 
 @pytest.mark.parametrize("backend", ["rdft", "fastp"])
@@ -110,9 +119,9 @@ def test_streaming_demodulator_matches_one_shot(backend):
     """Chunked feeding through StreamingPyramidDemodulator reproduces
     pyramid_demodulate's symbols (test_pyramid.py's collision)."""
     iq = _collision(1000 + 16 * PYR_N + 4 * PYR_N // 8 + 204)
-    one = pyramid_demodulate(iq, PYR_CFG, backend=backend)
+    one = pyramid_demodulate(iq, PYR_CFG, backend=backend, **CPU)
     sp = StreamingPyramidDemodulator(PYR_CFG, block_hops=512,
-                                     backend=backend)
+                                     backend=backend, **CPU)
     ri = to_ri(iq)
     got = []
     for i in range(0, len(ri), 9001):
@@ -128,7 +137,7 @@ def test_streaming_demodulator_matches_one_shot(backend):
 
 def test_streaming_python_tracker_not_ported():
     with pytest.raises(NotImplementedError):
-        StreamingPyramidDemodulator(PYR_CFG, use_native=False)
+        StreamingPyramidDemodulator(PYR_CFG, use_native=False, **CPU)
 
 
 def test_multi_sf_gateway_matches_jax():
@@ -136,9 +145,9 @@ def test_multi_sf_gateway_matches_jax():
     a clean SF7 single before it; backend 'fastp' (K5) on both SFs."""
     sfs = (7, 8)
     kw = dict(sfs=sfs, block_hops={7: 256, 8: 128}, backend="fastp")
-    gw = MultiSFPyramidGateway(CFG, CHANNELS, **kw)
+    gw = MultiSFPyramidGateway(CFG, CHANNELS, **CPU, **kw)
     cfg7 = gw.cfgs[7]
-    pay7 = _clean_payload(cfg7, 6, seed0=70)
+    pay7 = _clean_payload(JAX_CFG.replace(sf=7, ldr=cfg7.ldr), 6, seed0=70)
     single = 0.15 * modulate(encode(pay7, cfg7), cfg7, pad_front=0,
                              pad_back=0)
     lead = len(single) + 2000
@@ -154,7 +163,8 @@ def test_multi_sf_gateway_matches_jax():
                        else None) for p in pkts)
 
     ours = packets(_run(gw, ri, step=20_000))
-    ref = packets(_run(JaxMultiSF(CFG, CHANNELS, **kw), ri, step=20_000))
+    ref = packets(_run(JaxMultiSF(JAX_CFG, CHANNELS, **kw), ri,
+                       step=20_000))
     assert ours == ref
     for c in range(CHANNELS):
         got = {(sf, pdu) for ch, sf, _, _, pdu in ours if ch == c}

@@ -15,14 +15,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from gr_lora_tpu import LoraConfig
-from gr_lora_tpu.core.codec import encode
+from gr_lora_tpu_torch.core.codec import encode
 from gr_lora_tpu.ops.pallas_rdft import make_rdft_peaks
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.models.pyramid import num_hops_for, peak_lattice_fn
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.ops.peak_epilogue import compare_peaks
 from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks, rdft_peaks_supported
+from test_torch_core import config_pair
 
 RTOL = 1e-4
 
@@ -41,13 +41,14 @@ def _signal(cfg, seed):
 
 @pytest.mark.parametrize("sf,ff", [(7, 8), (7, 2), (8, 8), (8, 2)])
 def test_rdft_plain_matches_jax_kernel(sf, ff):
-    cfg = LoraConfig(sf=sf, cr=1, crc=True, ldr=False, explicit_header=True,
-                     payload_len=4, p=2, fft_factor=ff, threshold=5.0)
+    jcfg, cfg = config_pair(sf=sf, cr=1, crc=True, ldr=False,
+                            explicit_header=True, payload_len=4, p=2,
+                            fft_factor=ff, threshold=5.0)
     assert rdft_peaks_supported(cfg)
     iq, total = _signal(cfg, seed=sf * ff)
     nh = num_hops_for(cfg, total)
     ref = jax.device_get(jax.jit(make_rdft_peaks(
-        cfg, nh, 8, rev="flip", interpret=True))(jnp.asarray(iq)))
+        jcfg, nh, 8, rev="flip", interpret=True))(jnp.asarray(iq)))
     ours = RdftPeaks(cfg, nh, 8)(torch.from_numpy(iq))
     assert ref[3].any()
     compare_peaks(ref, ours, RTOL)
@@ -56,8 +57,9 @@ def test_rdft_plain_matches_jax_kernel(sf, ff):
 def test_rdft_batched_lanes_match_single():
     """Leading batch dims (the gateway's event lanes) give each lane's own
     single-stream result."""
-    cfg = LoraConfig(sf=7, cr=1, crc=True, ldr=False, explicit_header=True,
-                     payload_len=4, p=2, fft_factor=8, threshold=5.0)
+    _, cfg = config_pair(sf=7, cr=1, crc=True, ldr=False,
+                         explicit_header=True, payload_len=4, p=2,
+                         fft_factor=8, threshold=5.0)
     a, total = _signal(cfg, seed=1)
     b, _ = _signal(cfg, seed=2)
     nh = num_hops_for(cfg, total)
@@ -72,8 +74,9 @@ def test_rdft_batched_lanes_match_single():
 def test_fused_dispatch_and_short_input():
     """'fused' picks K1 at SF7-9 x ff 8; frames past the capture end are
     zero-padded, so a short input yields no peaks there."""
-    cfg = LoraConfig(sf=9, cr=1, crc=True, ldr=False, explicit_header=True,
-                     payload_len=4, p=2, fft_factor=8, threshold=5.0)
+    _, cfg = config_pair(sf=9, cr=1, crc=True, ldr=False,
+                         explicit_header=True, payload_len=4, p=2,
+                         fft_factor=8, threshold=5.0)
     lat = peak_lattice_fn(cfg, 40, 8, "fused")
     assert isinstance(lat, RdftPeaks)
     iq = torch.zeros((cfg.num_samples, 2))

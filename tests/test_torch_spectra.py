@@ -11,19 +11,20 @@ import torch
 
 import jax.numpy as jnp
 
-from gr_lora_tpu import LoraConfig
 from gr_lora_tpu.ops import dechirp as jdechirp
 from gr_lora_tpu.ops.overlap_dft import fast_pyramid_spectra as jfast
 from gr_lora_tpu_torch.ops import dechirp as tdechirp
 from gr_lora_tpu_torch.ops.overlap_dft import fast_pyramid_spectra
+from test_torch_core import config_pair
 
 RTOL = 1e-4
 
 
 def _cfg(sf, ff, p=2):
-    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False, explicit_header=True,
-                      payload_len=8, p=p, fft_factor=ff, threshold=5.0,
-                      precision="highest")
+    """(JAX config, port config)."""
+    return config_pair(sf=sf, cr=1, crc=True, ldr=False,
+                       explicit_header=True, payload_len=8, p=p,
+                       fft_factor=ff, threshold=5.0, precision="highest")
 
 
 def _close(ours, ref):
@@ -40,40 +41,40 @@ def _frames(cfg, num, seed):
 
 @pytest.mark.parametrize("sf,ff", [(7, 2), (8, 2), (8, 8)])
 def test_up_bands_match_jax(sf, ff):
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     fr = _frames(cfg, 6, sf + ff)
     lo, hi = tdechirp.up_bands(torch.from_numpy(fr), cfg)
-    rlo, rhi = jdechirp.up_bands(jnp.asarray(fr), cfg)
+    rlo, rhi = jdechirp.up_bands(jnp.asarray(fr), jcfg)
     _close(lo, rlo)
     _close(hi, rhi)
 
 
 @pytest.mark.parametrize("sf,ff,p", [(7, 8, 2), (8, 8, 2), (7, 2, 8)])
 def test_pyramid_spectra_match_jax(sf, ff, p):
-    cfg = _cfg(sf, ff, p)
+    jcfg, cfg = _cfg(sf, ff, p)
     fr = _frames(cfg, 5, sf * ff)
     ours = tdechirp.pyramid_spectra(torch.from_numpy(fr), cfg)
-    ref = jdechirp.pyramid_spectra(jnp.asarray(fr), cfg)
+    ref = jdechirp.pyramid_spectra(jnp.asarray(fr), jcfg)
     for a, b in zip(ours, ref):
         _close(a, b)
 
 
 @pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8)])
 def test_fast_pyramid_spectra_match_jax(sf, ff):
-    cfg = _cfg(sf, ff)
+    jcfg, cfg = _cfg(sf, ff)
     nh = 40
     rng = np.random.default_rng(sf)
     total = (nh + 7) * cfg.num_samples // 8
     iq = rng.standard_normal((total, 2)).astype(np.float32)
     ours = fast_pyramid_spectra(torch.from_numpy(iq), cfg, nh)
-    ref = jfast(jnp.asarray(iq), cfg, nh)
+    ref = jfast(jnp.asarray(iq), jcfg, nh)
     for a, b in zip(ours, ref):
         _close(a, b)
 
 
 def test_fast_matches_framed_spectra():
     """The overlap decomposition equals explicit framing in the port too."""
-    cfg = _cfg(8, 8)
+    _, cfg = _cfg(8, 8)
     n, hop, nh = cfg.num_samples, cfg.num_samples // 8, 24
     rng = np.random.default_rng(11)
     iq = torch.from_numpy(rng.standard_normal(
