@@ -8,7 +8,8 @@ the final ``ok`` line):
 1. device  — a CUDA device is required; prints nvidia-smi's name and
    power limit;
 2. build   — compiles ``gr_lora_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
-   one nvcc per source, all at once;
+   one nvcc per source, all at once, and prints ptxas's registers, spills
+   and static shared memory of every kernel;
 3. parity  — each hand-written kernel against its plain PyTorch version
    on the card at main-path shapes, with CUDA-event times of both:
    K1 rDFT peaks at SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8 event
@@ -32,13 +33,14 @@ the final ``ok`` line):
 6. multi-SF — MultiSFPyramidGateway, 16 channels x SF7-12, backend
    "fastp" (K5 at every SF), fed the golden collision and one single at
    a round-robin SF per channel;
-7. probes — P1, the tensor-core rate probe, and P2, the tensor-core /
-   CUDA-core overlap probe, at the main path's dot shape (256, 512, 4352):
-   each checked against its plain version first (P1's value within rtol
-   1e-3; P2 over 4 steps: its chain slab equal bit for bit, its product
-   within rtol 1e-3), then timed: P1's TFLOP/s beside torch.matmul's
-   (cuBLAS) on the same bf16 operands, P2's three variants and its
-   overlap efficiency.
+7. probes — P1, the tensor-core rate probe (wgmma + TMA), and P2, the
+   tensor-core / CUDA-core overlap probe, at the main path's dot shape
+   (256, 512, 4352): each checked against its plain version first (P1's
+   whole scratch, all four slabs, and its value within rtol 1e-3, at the
+   main shape and at (128, 256, 1024); P2 over 4 steps: its chain slab
+   equal bit for bit, its product within rtol 1e-3), then timed: P1's
+   TFLOP/s beside torch.matmul's (cuBLAS) on the same bf16 operands, P2's
+   three variants and its overlap efficiency.
 
 Phases 4-7 each assert what they check and that their kernels ran: every
 launch count is set to 0 just before a phase and read just after.  The
@@ -54,6 +56,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -188,6 +191,16 @@ def _ok_pdus(pkts) -> dict:
     return got
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's identifier in a mangled name, with its template
+    arguments (``ILb1ELb0EE``) where it has them."""
+    m = re.search(r"[A-Za-z_]+kernel", mangled)
+    if not m:
+        return mangled
+    targs = re.match(r"I\w*?EE", mangled[m.end():])
+    return m.group() + (targs.group() if targs else "")
+
+
 def _time_ms(fn, iters: int) -> float:
     import torch
 
@@ -227,6 +240,13 @@ def _row(err, ms, plain_ms, shape, bound, library_ms=None) -> dict:
 def _peak_bytes(lanes: int, hops: int, m: int) -> int:
     """Bytes of a peak lattice: bins int32, h and h_single f32, valid."""
     return 13 * lanes * hops * m
+
+
+def _unfused_floor_ms(f32_ops: float) -> float:
+    """Least time for ``f32_ops`` operations that may not fuse into FMAs
+    (K2 / K5 round every product and sum on its own): one operation a
+    lane a cycle, half the FMA-counted 67 TFLOP/s."""
+    return f32_ops / (F32_FLOPS / 2) * 1e3
 
 
 def _overlap_f32_ops(plan, lanes: int, hops: int) -> int:
@@ -309,14 +329,18 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         shape = f"SF{sf} G [{lanes}, {g.shape[1]}, {g.shape[2]}, 2] -> " \
                 f"[{lanes}, {mod.num_hops}, {mod.max_peaks}]"
         plan = mod.plan
-        bound = _bound(_nbytes(g, plan.rho, plan.win_taps)
+        ops = _overlap_f32_ops(plan, lanes, mod.num_hops)
+        bound = _bound(_nbytes(g, plan.rho_period, plan.win_taps)
                        + _peak_bytes(lanes, mod.num_hops, mod.max_peaks),
-                       f32_ops=_overlap_f32_ops(plan, lanes, mod.num_hops))
+                       f32_ops=ops)
         print(f"parity K2 overlap_peaks {shape}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound[0]:.4f}")
+              f"bound_ms={bound[0]:.4f} "
+              f"unfused_floor_ms={_unfused_floor_ms(ops):.4f}")
         report["overlap_peaks"].append(_row(err, ms, plain_ms, shape,
                                             bound))
+        report["overlap_peaks"][-1]["unfused_floor_ms"] = \
+            _unfused_floor_ms(ops)
 
 
 def main_path(gw, iq_dev, singles, card: str) -> dict:
@@ -483,14 +507,18 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         shape = (f"SF{cfg.sf} G [{g.shape[0]}, {g.shape[1]}, {g.shape[2]}, "
                  f"2] -> [{g.shape[0]}, {nh}, {cfg.bin_size}]")
         plan = mod.plan
-        bound = _bound(_nbytes(g, plan.rho, plan.win_taps)
+        ops = _overlap_f32_ops(plan, g.shape[0], nh)
+        bound = _bound(_nbytes(g, plan.rho_period, plan.win_taps)
                        + 3 * 4 * g.shape[0] * nh * cfg.bin_size,
-                       f32_ops=_overlap_f32_ops(plan, g.shape[0], nh))
+                       f32_ops=ops)
         print(f"parity K5 overlap_spectra {shape}: max_abs_err={err:.6g} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"chunk_dft_ms={fft_ms:.4f} bound_ms={bound[0]:.4f}")
+              f"chunk_dft_ms={fft_ms:.4f} bound_ms={bound[0]:.4f} "
+              f"unfused_floor_ms={_unfused_floor_ms(ops):.4f}")
         report["overlap_spectra"].append(_row(err, ms, plain_ms, shape,
                                               bound))
+        report["overlap_spectra"][-1]["unfused_floor_ms"] = \
+            _unfused_floor_ms(ops)
         del mod, g
         torch.cuda.empty_cache()
 
@@ -620,13 +648,23 @@ def probes(dev, card: str, report: dict, launches: dict) -> None:
     x, w, v0 = (t.to(dev) for t in probe_inputs(rows, depth, width))
     shape = f"[{rows}, {depth}] @ [{depth}, {width}] bf16"
     p1 = RateProbe()
-    got, ref = p1.kernel(x, w), p1.plain(x, w)
-    torch.cuda.synchronize()
-    err1 = float((got - ref).abs().max())
-    # Another summation order of 512 bf16 products: rtol 1e-3.
-    if not err1 <= 1e-3 * float(ref.abs().max()) + 1e-3:
-        fail(f"rate_probe {float(got)} differs from its plain version "
-             f"{float(ref)}")
+    err1 = 0.0
+    # The whole last-step scratch (all four slabs) and the value, at the
+    # main shape and at one other: another summation order of bf16
+    # products, rtol 1e-3.
+    for shp in (MAIN_SHAPE, (128, 256, 1024)):
+        xs, ws, _ = (t.to(dev) for t in probe_inputs(*shp))
+        (got, scratch), (ref, ref_scratch) = p1.kernel(xs, ws), \
+            p1.plain(xs, ws)
+        torch.cuda.synchronize()
+        for name, a, b in (("scratch", scratch, ref_scratch),
+                           ("value", got, ref)):
+            if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+                fail(f"rate_probe {shp}: its {name} differs from the plain "
+                     f"version's (max |d| {float((a - b).abs().max())})")
+        err1 = max(err1, float((scratch - ref_scratch).abs().max()),
+                   float((got - ref).abs().max()))
+        del xs, ws, scratch, ref_scratch
     kinds = ("mxu", "vpu", "both")
     err2 = 0.0
     for kind in kinds:
@@ -744,6 +782,8 @@ def main() -> None:
     _build.library()
     print(f"build {len(_build.sources())} sources -> "
           f"{_build.LIB_PATH.name} in {time.perf_counter() - t0:.2f} s")
+    for name, usage in _build.resources().items():
+        print(f"ptxas {_kernel_name(name)}: {usage}")
 
     from gr_lora_tpu_torch.dist.collision_gateway import \
         TriggeredPyramidGateway

@@ -8,157 +8,283 @@
 // is csrc/peak_topm.cu).  With hop h = N/8, F = fft_factor * N, per hop b:
 //
 //   X_b[c]  = sum_{j<8} rho_j[c] * G[b + j, (c - sigma_j) mod F]
-//   Xw_b[c] = sum_q tap_q * X_b[(c - shift_q) mod F]      (~19-21 taps)
+//   Xw_b[c] = sum_q tap_q * X_b[(c - shift_q) mod F]      (~15 taps)
 //   fa = |X(c)| + |X(c+F-K)|, hs = max of the two, faw = |Xw(c)| + |Xw(c+F-K)|
 //
 // all in f32 (bf16 G leaves spurious above-threshold peaks,
-// pallas_peaks.py:272-275).  G is indexed directly at (c - sigma_j) mod F:
-// the TPU kernel's bin-tile gather, its 46 BlockSpec views and its SMEM
-// scalar table do not exist here.  The hi fold side is c + F - K for
-// every p (the TPU view arithmetic assumes F = 2K).
+// pallas_peaks.py:272-275).  The hi fold side is c + F - K for every p
+// (the TPU view arithmetic assumes F = 2K).
 //
-// Bound on the card: bytes — each output bin reads 8 complex G values per
-// fold side (about 130 B of G a bin with the halo).  Design: a block owns
-// 8 hops x 256 bins; per fold side it builds X over the tile plus a halo
-// of the largest window shift in shared memory (one pass over G, rho read
-// once per bin and reused across the 8 hops), then each thread applies the
-// window taps to its bin of all 8 hops from shared memory (each tap read
-// once), so the dense X / Xw never reach device memory.
+// The sheared walk.  sigma_j = j sigma_1 (mod F), so with e = c + sigma_1 b
+// and G'[r, e] = G[r, (e - sigma_1 r) mod F], X_b at bin c is the sum of 8
+// consecutive rows of G' down the fixed column e.  rho_j[c] is periodic in
+// c with period P = 8 fft_factor and sigma_1 is a multiple of P, so down a
+// column rho is constant: the kernel and its plain version
+// (ops/overlap_dft.spectra_from_chunks) both take rho from one period,
+// `rho_period` [8, P] (the f32 table is periodic only to ~1e-12, so the
+// full table would not be constant down a column).  A block owns a band of
+// kBand columns e (both fold sides, e and e + F - K) for a run of hops: it
+// keeps the G' rows of its band plus the window's halo in a ring of
+// shared memory, walks the hops in pairs (rows b .. b + 8 give X_b and
+// X_b+1; each window tap is read once for both), brings in the next rows
+// with cp.async while a pair is computed, and so reads each G element from
+// device memory once (times 1 + 2 halo / kBand) instead of 8 times.  For
+// a fixed hop the shift between c and e is constant, so the window is a
+// convolution along e inside the tile.  Each column of the band yields an output at p = 2
+// (F - K = K: a column whose bin falls in [K, 2K) is the hi side of bin
+// c - K, whose lo side is the partner column); at p != 2 only columns whose
+// bin falls in [0, K) are written (a waste of loads, not a wrong answer).
+//
+// Every product and sum is rounded on its own (the _rn intrinsics are never
+// contracted into FMAs) and taken in the plain version's order (j
+// ascending, taps ascending), so the kernel's folds equal the plain
+// version's on the card bit for bit, and so do the peaks.  Bound on the
+// card: instruction throughput, not device memory (G is read once) — the
+// separately rounded f32 operations of every output (no FMA may fuse them),
+// plus the window's shared-memory loads (one X value a tap and side) and
+// their addresses.  kSlots, kStride and the 16 zero-padded taps are compile-time
+// so that every ring and window load has a constant offset.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTh = 8;            // hops per block
-constexpr int kBt = 256;          // output bins per block
-constexpr int kThreads = kBt;     // thread i owns bin c0 + i of all kTh hops
+constexpr int kBand = 256;        // columns e a block owns (one a thread)
+constexpr int kThreads = kBand;
 constexpr int kR = 8;             // PYRAMID_OVERLAP_FACTOR
-constexpr int kMaxTaps = 64;
+constexpr int kSlots = 10;        // ring rows: the 9 in use, 1 in flight
+constexpr int kCols = 3;          // X columns a thread (both sides)
+constexpr int kStride = kCols * kThreads / 2;     // a side's columns, padded
+constexpr int kTaps = 16;         // window taps at most (15 at beta 25)
+constexpr int kTargetBlocks = 2048;   // hop runs: about this many blocks
+static_assert(kBand % 2 == 0, "the band is copied in pairs of bins");
 
-// Every product and sum is rounded on its own (the _rn intrinsics are never
-// contracted into FMAs) and taken in the plain version's order, so the
-// kernel's folds equal ops/overlap_dft.spectra_from_chunks on the card bit
-// for bit, and so do the peaks.
-__device__ __forceinline__ float2 cfma(float2 a, float2 b, float2 acc) {
-    acc.x = __fadd_rn(acc.x, __fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)));
-    acc.y = __fadd_rn(acc.y, __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
-    return acc;
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+    return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                       __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
 }
 
 __device__ __forceinline__ float cmag(float2 a) {
     return sqrtf(__fadd_rn(__fmul_rn(a.x, a.x), __fmul_rn(a.y, a.y)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int mod(int a, int m) {
+    const int r = a % m;
+    return r < 0 ? r + m : r;
+}
+
+// Window tap q at column pointer `col`, both hops of a pair (X rows
+// 2 kStride apart) and both sides (kStride apart): xw += tap * X[-sq].
+__device__ __forceinline__ void window_tap(float2 (&xw)[2][2],
+                                           const float2* col, float4 ts,
+                                           bool first) {
+    const float2 tap = make_float2(ts.x, ts.y);
+    const float2* x = col - __float_as_int(ts.z);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+            const float2 term = cmul(x[(2 * h + side) * kStride], tap);
+            xw[h][side] = first ? term : cadd(xw[h][side], term);
+        }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 overlap_spectra_kernel(const float2* __restrict__ g,
-                       const float2* __restrict__ rho,
-                       const int* __restrict__ sigma,
+                       const float2* __restrict__ rho_period,
                        const int* __restrict__ shifts,
                        const float2* __restrict__ taps,
                        float* __restrict__ fa, float* __restrict__ faw,
                        float* __restrict__ hs, int rows_g, int hops, int f,
-                       int k, int ntaps, int halo) {
+                       int k, int s1, int period, int ntaps, int hp, int run) {
     extern __shared__ __align__(16) unsigned char smem[];
-    float2* xs = reinterpret_cast<float2*>(smem);
-    __shared__ float2 tap_s[kMaxTaps];
-    __shared__ int shift_s[kMaxTaps];
-    __shared__ int sigma_s[kR];
+    // A side's columns: band + 2 halo, padded to kStride (a multiple of P,
+    // so that a column's rho index is the same on both sides and every 256
+    // columns).
+    const int width = kBand + 2 * hp;
+    float2* ring = reinterpret_cast<float2*>(smem);     // [kSlots][2][kStride]
+    float2* xs = ring + kSlots * 2 * kStride;           // [2][2][kStride]
+    // Tap q: (re, im, shift, 0), zero-padded to kTaps.
+    __shared__ float4 tap_s[kTaps];
 
-    const int c0 = blockIdx.x * kBt;
-    const int b0 = blockIdx.y * kTh;
+    const int off = f - k;                     // the hi side's column offset
+    const int span = f == 2 * k ? k : f;       // columns e the bands cover
+    const int e0 = blockIdx.x * kBand;
+    const int b0 = blockIdx.y * run;
+    const int b1 = min(hops, b0 + run);
     const long long lane = blockIdx.z;
-    const int width = kBt + 2 * halo;
     const float2* gl = g + lane * rows_g * (long long)f;
+    const int t = threadIdx.x;
 
-    for (int t = threadIdx.x; t < ntaps; t += kThreads) {
-        tap_s[t] = taps[t];
-        shift_s[t] = shifts[t];
+    // Taps past ntaps are 0 with shift 0: they add products of +-0, which
+    // leave every sum as it is (up to the sign of a zero, which no
+    // magnitude sees).
+    if (t < kTaps) {
+        const float2 tap = t < ntaps ? taps[t] : make_float2(0.0f, 0.0f);
+        const int sq = t < ntaps ? shifts[t] : 0;
+        tap_s[t] = make_float4(tap.x, tap.y, __int_as_float(sq), 0.0f);
     }
-    if (threadIdx.x < kR) sigma_s[threadIdx.x] = sigma[threadIdx.x];
-    __syncthreads();
+    // This thread's X columns u = t + 256 m of the flattened [2][kStride]
+    // (a padding column's X is computed and never read).  rho down all of
+    // them is one period index for every hop.
+    float2 rho[kR];
+    const int ri = mod(t - hp, period);
+#pragma unroll
+    for (int j = 0; j < kR; ++j) rho[j] = rho_period[j * period + ri];
 
-    const int i = threadIdx.x;
-    float mag[2][kTh], magw[2][kTh];
-#pragma unroll       // static indices keep mag / magw in registers
-    for (int side = 0; side < 2; ++side) {
-        const int base = c0 + side * (f - k) - halo;     // bin of column 0
-        for (int u = threadIdx.x; u < width; u += kThreads) {
-            int bin = (base + u) % f;
-            if (bin < 0) bin += f;
-            float2 acc[kTh];
+    // The row copies: this thread's 16-byte chunks q = t + 256 i of the
+    // 2 x width/2 chunks a row, each at a fixed side and column u; a row r
+    // starts at bin base_side(r) = e0 - hp + side (F - K) - sigma_1 r
+    // (mod F), stepped down by sigma_1 from row to row.
+    const int half = width / 2;
+    int csrc[2], cdst[2];
+    bool cgo[2];
 #pragma unroll
-            for (int t = 0; t < kTh; ++t) acc[t] = make_float2(0.0f, 0.0f);
+    for (int i = 0; i < 2; ++i) {
+        const int q = t + i * kThreads;
+        const int side = q >= half;
+        cgo[i] = q < 2 * half;
+        csrc[i] = 2 * (q - side * half) + side * off;   // bin past e0 - hp
+        cdst[i] = side * kStride + 2 * (q - side * half);
+    }
+    const int s1b0 = (int)(((long long)s1 * b0) % f);
+    int base = mod(e0 - hp - s1b0, f);         // of row r, side 0 (+ off)
+    const int last = b1 + kR - 1;              // rows b0 .. last - 1
+    auto load_row = [&](int r) {
+        if (r < last) {
+            float2* slot = ring + (r % kSlots) * 2 * kStride;
+            const float2* row = gl + (long long)r * f;
 #pragma unroll
-            for (int j = 0; j < kR; ++j) {
-                const float2 r = rho[(long long)j * f + bin];
-                int gb = bin - sigma_s[j];
-                if (gb < 0) gb += f;
-#pragma unroll
-                for (int t = 0; t < kTh; ++t) {
-                    const int b = b0 + t;
-                    if (b < hops)
-                        acc[t] = cfma(gl[(long long)(b + j) * f + gb], r,
-                                      acc[t]);
-                }
+            for (int i = 0; i < 2; ++i) {
+                if (!cgo[i]) continue;
+                int col = base + csrc[i];
+                if (col >= f) col = width + off <= f ? col - f : col % f;
+                hopper::cp_async16(slot + cdst[i], row + col);
             }
-#pragma unroll
-            for (int t = 0; t < kTh; ++t) xs[t * width + u] = acc[t];
         }
-        __syncthreads();
-        // Window taps in ascending q for every hop: one read of each tap.
-        float2 xw[kTh];
-#pragma unroll
-        for (int t = 0; t < kTh; ++t) xw[t] = make_float2(0.0f, 0.0f);
-        for (int q = 0; q < ntaps; ++q) {
-            const float2 tap = tap_s[q];
-            const float2* col = xs + halo + i - shift_s[q];
-#pragma unroll
-            for (int t = 0; t < kTh; ++t) xw[t] = cfma(col[t * width], tap, xw[t]);
-        }
-#pragma unroll
-        for (int t = 0; t < kTh; ++t) {
-            mag[side][t] = cmag(xs[t * width + halo + i]);
-            magw[side][t] = cmag(xw[t]);
-        }
-        __syncthreads();
-    }
+        hopper::cp_async_commit();
+        base -= s1;
+        if (base < 0) base += f;
+    };
+    for (int r = b0; r < b0 + kSlots; ++r) load_row(r);
+    // Bin of column e0 at hop b: c0 = e0 - sigma_1 b (mod F).
+    int c0 = mod(e0 - s1b0, f);
 
-    const int c = c0 + i;
-    if (c >= k) return;
+    // Hops in pairs (b, b + 1): rows b .. b + 8 give both X, each tap of
+    // the window is read once for both.
+    for (int b = b0; b < b1; b += 2) {
+        hopper::cp_async_wait<kSlots - kR - 1>();   // rows up to b + 8
+        __syncthreads();
+        // X_b and X_b+1 down this thread's columns: j ascending, as the
+        // plain version sums.
+        const float2* row[kR + 1];
 #pragma unroll
-    for (int t = 0; t < kTh; ++t) {
-        const int b = b0 + t;
-        if (b >= hops) break;
-        const long long o = (lane * hops + b) * (long long)k + c;
-        fa[o] = __fadd_rn(mag[0][t], mag[1][t]);
-        hs[o] = fmaxf(mag[0][t], mag[1][t]);
-        faw[o] = __fadd_rn(magw[0][t], magw[1][t]);
+        for (int j = 0; j <= kR; ++j)
+            row[j] = ring + (b + j) % kSlots * 2 * kStride + t;
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) {
+            const int u = m * kThreads;
+            const float2 g0 = row[0][u], g1 = row[1][u];
+            float2 x0 = cmul(g0, rho[0]);
+            float2 x1 = cmul(g1, rho[0]);
+            x0 = cadd(x0, cmul(g1, rho[1]));
+#pragma unroll
+            for (int j = 2; j <= kR; ++j) {
+                const float2 gj = row[j][u];
+                if (j < kR) x0 = cadd(x0, cmul(gj, rho[j]));
+                x1 = cadd(x1, cmul(gj, rho[j - 1]));
+            }
+            xs[t + u] = x0;
+            xs[2 * kStride + t + u] = x1;
+        }
+        __syncthreads();
+        // Rows b and b + 1 are spent: their slots take the next two.
+        load_row(b + kSlots);
+        load_row(b + 1 + kSlots);
+
+        // Bins of column e0 + t at hops b and b + 1.
+        int c[2];
+        c[0] = c0 + t;
+        c0 -= s1;
+        if (c0 < 0) c0 += f;
+        c[1] = c0 + t;
+        c0 -= s1;
+        if (c0 < 0) c0 += f;
+        if (e0 + t >= span) continue;
+        bool emit[2];
+        int lo[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (c[h] >= f) c[h] = f >= kBand ? c[h] - f : c[h] % f;
+            lo[h] = c[h] >= k;                 // the hi side of bin c - K
+            emit[h] = b + h < b1 && (!lo[h] || f == 2 * k);
+            if (lo[h]) c[h] -= k;
+        }
+        // The window along e, taps ascending, both hops and sides at once.
+        const float2* col = xs + hp + t;
+        float2 xw[2][2];
+#pragma unroll
+        for (int q = 0; q < kTaps - 1; ++q)
+            window_tap(xw, col, tap_s[q], q == 0);
+        if (ntaps == kTaps) window_tap(xw, col, tap_s[kTaps - 1], false);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (!emit[h]) continue;
+            const float2* xh = col + h * 2 * kStride;
+            const float m0 = cmag(xh[0]), m1 = cmag(xh[kStride]);
+            const float w0 = cmag(xw[h][0]), w1 = cmag(xw[h][1]);
+            const float mlo = lo[h] ? m1 : m0, mhi = lo[h] ? m0 : m1;
+            const float wlo = lo[h] ? w1 : w0, whi = lo[h] ? w0 : w1;
+            const long long o = (lane * hops + b + h) * (long long)k + c[h];
+            fa[o] = __fadd_rn(mlo, mhi);
+            hs[o] = fmaxf(mlo, mhi);
+            faw[o] = __fadd_rn(wlo, whi);
+        }
     }
+    hopper::cp_async_wait<0>();
 }
 
 }  // namespace
 
-extern "C" int grl_overlap_spectra(const float* g, const float* rho,
-                                   const int* sigma, const int* shifts,
-                                   const float* taps, float* fa, float* faw,
-                                   float* hs, int lanes, int rows_g, int hops,
-                                   int f, int k, int ntaps, int halo,
-                                   void* stream) {
+// sigma1 = sigma_1 mod F; halo = the largest |window shift|.  The plan's
+// sigma_j must be j sigma1 mod F (the wrapper checks it).
+extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
+                                   const int* shifts, const float* taps,
+                                   float* fa, float* faw, float* hs,
+                                   int lanes, int rows_g, int hops, int f,
+                                   int k, int sigma1, int period, int ntaps,
+                                   int halo, void* stream) {
     if (lanes <= 0 || hops <= 0) return 0;
-    if (ntaps < 1 || ntaps > kMaxTaps || halo < 0 || rows_g < hops + kR - 1 ||
-        k > f)
+    const int hp = halo + (halo & 1);          // even: 16-byte copies
+    if (ntaps < 1 || ntaps > kTaps || halo < 0 || rows_g < hops + kR - 1 ||
+        k <= 0 || f % k || f % 2 || period <= 0 || kBand % period ||
+        sigma1 % period || (f - k) % period || sigma1 < 0 || sigma1 >= f ||
+        kStride % period || kBand + 2 * hp > kStride)
         return cudaErrorInvalidValue;
-    const size_t smem = (size_t)kTh * (kBt + 2 * halo) * sizeof(float2);
+    const int span = f == 2 * k ? k : f;
+    const int bands = (span + kBand - 1) / kBand;
+    const long long per_run = (long long)bands * lanes;
+    const long long runs_want = (kTargetBlocks + per_run - 1) / per_run;
+    const int run = (int)((hops + runs_want - 1) / runs_want);
+    const int runs = (hops + run - 1) / run;
+    const size_t smem = (size_t)(kSlots + 2) * 2 * kStride * sizeof(float2);
     cudaError_t err = cudaFuncSetAttribute(
         overlap_spectra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((k + kBt - 1) / kBt, (hops + kTh - 1) / kTh, lanes);
+    const dim3 grid(bands, runs, lanes);
     overlap_spectra_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float2*>(g), reinterpret_cast<const float2*>(rho),
-        sigma, shifts, reinterpret_cast<const float2*>(taps), fa, faw, hs,
-        rows_g, hops, f, k, ntaps, halo);
+        reinterpret_cast<const float2*>(g),
+        reinterpret_cast<const float2*>(rho_period), shifts,
+        reinterpret_cast<const float2*>(taps), fa, faw, hs, rows_g, hops, f,
+        k, sigma1, period, ntaps, hp, run);
     return (int)cudaGetLastError();
 }

@@ -15,14 +15,29 @@
 //
 // Bound on the card: tensor-core operations (P1: 16 x 4 x 2 rows depth
 // width; P2 `both`: the products, with the chain's f32 operations on the
-// CUDA cores beside them).  Design, weight-stationary as the TPU probes
-// are: a block owns a 128 x 64 tile of one product, stages its A rows
-// (128 x depth) and B columns (depth x 64) in shared memory once, and
-// every step runs the whole contraction from there (8 warps of 32 x 32,
-// WMMA m16n16k16 bf16, f32 accumulate).  A step's accumulators start from
-// the previous step's times 0 (no compiler may fold a float product by 0),
-// so every step's products feed the next and none is dead code; the last
-// step's tile is written to the scratch in device memory.  P2's three kinds
+// CUDA cores beside them).
+//
+// P1's design, wgmma + TMA: the four products are one [4 rows, depth] x
+// [depth, width] product cut into 128 x 256 output tiles, and a
+// persistent grid of one block an SM walks the (step, tile) units, so
+// the last wave is not a handful of SMs.  Two consumer warpgroups each
+// run wgmma m64n256k16 (bf16, f32 accumulators in registers; A = x
+// K-major, B = w MN-major through the descriptor's transpose bit), one
+// producer thread keeps TMA loads of 64-deep A and B tiles (128-byte
+// swizzled) in flight through a ring of 4 stages with full / empty
+// mbarriers.  The operands (5.3 MB at the main shape) stay in L2, so
+// reloading a tile for each step is an L2 read.  A unit's first product
+// overwrites its accumulators (scale-d 0) as each TPU step overwrites its
+// scratch, every wgmma is volatile asm so none is removed, and the last
+// step's tiles go to the scratch in device memory.
+//
+// P2 keeps the weight-stationary WMMA design the TPU probes have: a block
+// owns a 128 x 64 tile of the product, stages its A rows (128 x depth)
+// and B columns (depth x 64) in shared memory once, and every step runs
+// the whole contraction from there (8 warps of 32 x 32, WMMA m16n16k16
+// bf16, f32 accumulate).  A step's accumulators start from the previous
+// step's times 0 (no compiler may fold a float product by 0), so every
+// step's products feed the next and none is dead code.  Its three kinds
 // share one launch shape (grid, shared memory, staging), as the TPU
 // probe's kernels share their grid machinery; its chain elements are
 // spread over every thread of the grid and held in registers across the
@@ -33,9 +48,22 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 
 namespace {
+
+// P1 tiles: 128 x 256 outputs a unit, 64-deep stages, 4 of them.
+constexpr int kBm = 128;
+constexpr int kBn = 256;
+constexpr int kBk = 64;
+constexpr int kStages = 4;
+constexpr int kP1Threads = 384;    // 2 consumer warpgroups + 1 producer
+constexpr uint32_t kStageA = kBm * kBk * 2;   // 16 KB: 128 rows x 128 B
+constexpr uint32_t kStageB = kBk * kBn * 2;   // 32 KB: 4 x (64 rows x 128 B)
+constexpr size_t kP1Smem = kStages * (kStageA + kStageB) + 1024 +
+                           2 * kStages * sizeof(uint64_t);
 
 constexpr int kTm = 128;           // product rows per block
 constexpr int kTn = 64;            // product columns per block
@@ -120,33 +148,116 @@ __device__ __forceinline__ void store_tile(Acc (&acc)[2][2], float* out,
                 acc[i][j], (unsigned)ld, wmma::mem_row_major);
 }
 
-__global__ void __launch_bounds__(kThreads)
-rate_probe_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
+// P1: the (step, tile) units of blockIdx.x, blockIdx.x + gridDim.x, ...
+__global__ void __launch_bounds__(kP1Threads, 1)
+rate_probe_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
                   float* __restrict__ scratch, float* __restrict__ out,
                   int rows, int depth, int width, int steps) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* bs = as + kTm * (depth + 8);
-    const int m0 = blockIdx.x * kTm, n0 = blockIdx.y * kTn;
-    const int j = blockIdx.z;                          // product (slab) j
-    stage(x + (long long)j * rows * depth, w, as, bs, m0, n0, depth, width);
-    __syncthreads();
-    Acc acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
-    for (int t = 0; t < steps; ++t) product_step(acc, as, bs, depth);
-    const long long ld = 4LL * width;
-    store_tile(acc, scratch + (long long)j * width, ld, m0, n0);
-    __syncthreads();
+    extern __shared__ unsigned char smem_raw[];
+    // SWIZZLE_128B tiles must start on a 1024-byte boundary.
+    unsigned char* sa = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* sb = sa + kStages * kStageA;
+    uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
+    uint64_t* empty = full + kStages;
+
+    const int mtiles = 4 * rows / kBm, ntiles = width / kBn;
+    const int tiles = mtiles * ntiles;
+    const long long units = (long long)tiles * steps;
+    const int kblocks = depth / kBk;
+    const int wg = threadIdx.x / 128;
+
     if (threadIdx.x == 0) {
-        // Two blocks each add one term to the zeroed output; a sum of two
-        // terms onto 0 is the same in either order.
-        if (j == 0 && m0 == 0 && n0 == 0) atomicAdd(out, scratch[0]);
-        if (j == 3 && m0 + kTm == rows && n0 + kTn == width)
-            atomicAdd(out, scratch[(rows - 1) * ld + ld - 1]);
+        for (int s = 0; s < kStages; ++s) {
+            hopper::mbar_init(&full[s], 1);      // the producer's expect_tx
+            hopper::mbar_init(&empty[s], 2);     // one arrive a consumer WG
+        }
+        hopper::mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        // Producer warpgroup: one thread starts every TMA load.
+        hopper::setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            hopper::tma_prefetch_map(&map_x);
+            hopper::tma_prefetch_map(&map_w);
+            int it = 0;
+            for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+                const int tile = (int)(u % tiles);
+                const int mt = tile % mtiles, nt = tile / mtiles;
+                for (int kb = 0; kb < kblocks; ++kb, ++it) {
+                    const int s = it % kStages;
+                    const uint32_t ph = (it / kStages) & 1;
+                    hopper::mbar_wait(&empty[s], ph ^ 1);
+                    hopper::mbar_expect_tx(&full[s], kStageA + kStageB);
+                    hopper::tma_load_2d(sa + s * kStageA, &map_x, &full[s],
+                                        kb * kBk, mt * kBm);
+#pragma unroll
+                    for (int c = 0; c < kBn / 64; ++c)
+                        hopper::tma_load_2d(sb + s * kStageB + c * 8192,
+                                            &map_w, &full[s],
+                                            nt * kBn + c * 64, kb * kBk);
+                }
+            }
+        }
+    } else {
+        // Consumer warpgroup wg: rows wg * 64 .. + 64 of every unit's tile.
+        hopper::setmaxnreg_inc<232>();
+        const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+        const bool elected = threadIdx.x % 128 == 0;
+        float d[128];
+        int it = 0;
+        for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+            const int tile = (int)(u % tiles);
+            const int mt = tile % mtiles, nt = tile / mtiles;
+            int prev = 0;
+            for (int kb = 0; kb < kblocks; ++kb, ++it) {
+                const int s = it % kStages;
+                hopper::mbar_wait(&full[s], (it / kStages) & 1);
+                hopper::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < kBk / 16; ++kk) {
+                    // A: K-major, 8-row groups 1024 B apart, 32 B a k16
+                    // slice.  B: MN-major, 64-column atoms 8 KB apart
+                    // (leading), 8-row k groups 1024 B apart, 2 KB a k16.
+                    const uint64_t da = hopper::desc_sw128(
+                        sa + s * kStageA + wg * 8192 + kk * 32, 16, 1024);
+                    const uint64_t db = hopper::desc_sw128(
+                        sb + s * kStageB + kk * 2048, 8192, 1024);
+                    hopper::wgmma_m64n256k16_bf16_bt(d, da, db,
+                                                     (kb | kk) != 0);
+                }
+                hopper::wgmma_commit();
+                // The group before this one is done: free its stage.
+                hopper::wgmma_wait<1>();
+                if (kb > 0 && elected) hopper::mbar_arrive(&empty[prev]);
+                prev = s;
+            }
+            hopper::wgmma_wait<0>();
+            if (elected) hopper::mbar_arrive(&empty[prev]);
+            if (u / tiles != steps - 1) continue;
+            // The last step's tile: row_t of the stacked [4 rows] product
+            // is row r of product (slab) j.
+            const int row_t = mt * kBm + wg * 64 + warp * 16 + lane / 4;
+            const int j = row_t / rows, r = row_t % rows;
+            const long long ld = 4LL * width;
+            float* o = scratch + (long long)r * ld + (long long)j * width +
+                       nt * kBn + 2 * (lane % 4);
+#pragma unroll
+            for (int jn = 0; jn < kBn / 8; ++jn)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    *reinterpret_cast<float2*>(o + i * 8 * ld + 8 * jn) =
+                        make_float2(d[4 * jn + 2 * i], d[4 * jn + 2 * i + 1]);
+            // Two threads each add one term to the zeroed output; a sum of
+            // two terms onto 0 is the same in either order.
+            if (row_t == 0 && nt == 0 && lane % 4 == 0) atomicAdd(out, d[0]);
+            if (row_t + 8 == 4 * rows - 1 && nt == ntiles - 1 &&
+                lane % 4 == 3)
+                atomicAdd(out, d[127]);
+        }
     }
 }
 
@@ -247,18 +358,29 @@ bool shape_ok(int rows, int depth, int width) {
 extern "C" int grl_rate_probe(const void* x, const void* w, float* scratch,
                               float* out, int rows, int depth, int width,
                               int steps, void* stream) {
-    if (!shape_ok(rows, depth, width) || steps <= 0)
+    if (rows <= 0 || rows % kBm || width <= 0 || width % kBn || depth <= 0 ||
+        depth % kBk || steps <= 0)
         return cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(depth);
-    cudaError_t err = cudaFuncSetAttribute(
+    CUtensorMap map_x, map_w;
+    int err = hopper::make_map_bf16(&map_x, x, 4ULL * rows, depth, kBm, kBk);
+    if (err) return err;
+    err = hopper::make_map_bf16(&map_w, w, depth, width, kBk, 64);
+    if (err) return err;
+    cudaError_t cerr = cudaFuncSetAttribute(
         rate_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(rows / kTm, width / kTn, 4);
-    rate_probe_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        reinterpret_cast<const __nv_bfloat16*>(x),
-        reinterpret_cast<const __nv_bfloat16*>(w), scratch, out, rows, depth,
-        width, steps);
+        (int)kP1Smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    int dev = 0, sms = 0;
+    cerr = cudaGetDevice(&dev);
+    if (cerr == cudaSuccess)
+        cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+    if (cerr != cudaSuccess) return (int)cerr;
+    const long long units =
+        (long long)(4 * rows / kBm) * (width / kBn) * steps;
+    const int grid = (int)(units < sms ? units : sms);
+    rate_probe_kernel<<<grid, kP1Threads, kP1Smem, (cudaStream_t)stream>>>(
+        map_x, map_w, scratch, out, rows, depth, width, steps);
     return (int)cudaGetLastError();
 }
 

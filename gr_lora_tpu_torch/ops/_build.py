@@ -30,9 +30,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libgr_lora_kernels.so"
+#: ptxas's resource report (registers, spills, static shared memory) of
+#: every kernel of the last build.
+PTXAS_PATH = BUILD_DIR / "ptxas.txt"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                 "-c")
+                 "-Xptxas", "-v", "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +44,7 @@ _F = ctypes.c_float
 #: C signature of each kernel entry point (all return int).
 SIGNATURES = {
     "grl_rdft_spectra": [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
-    "grl_overlap_spectra": [_P] * 8 + [_I] * 7 + [_P],
+    "grl_overlap_spectra": [_P] * 7 + [_I] * 9 + [_P],
     "grl_direct_spectra": [_P] * 5 + [_I] * 6 + [_P],
     "grl_peak_topm": [_P] * 7 + [_LL, _I, _I, _F, _P],
     "grl_chunk_spectra": [_P] * 5 + [_I] * 5 + [_P],
@@ -78,20 +81,22 @@ def _stale() -> bool:
                for p in (*sources(), *CSRC.glob("*.cuh")))
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands side by side; raise with the output of each that
-    failed, after all have ended."""
+    failed, after all have ended.  Returns their standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(errs)
 
 
 def build() -> Path:
@@ -112,10 +117,12 @@ def build() -> Path:
             objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
             tmp = LIB_PATH.with_suffix(f".{tag}.tmp")
             try:
-                _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
-                          for src, obj in zip(sources(), objs)])
+                report = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj),
+                                    str(src)]
+                                   for src, obj in zip(sources(), objs)])
                 _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                            *map(str, objs)]])
+                PTXAS_PATH.write_text(report)
                 os.replace(tmp, LIB_PATH)
             finally:
                 for f in (*objs, tmp):
@@ -137,6 +144,23 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def resources() -> dict[str, str]:
+    """{kernel function: ptxas's "Used N registers ..." line, with its
+    spill line} from the last build's report."""
+    out, name = {}, None
+    text = PTXAS_PATH.read_text() if PTXAS_PATH.exists() else ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill" in line:
+            out[name] = line.strip()
+        elif name and "Used" in line:
+            out[name] = (f"{line.split(':', 1)[1].strip()}; "
+                         f"{out.get(name, '')}")
+            name = None
+    return out
 
 
 def check(name: str, err: int) -> None:

@@ -79,10 +79,18 @@ def overlap_constants(sf: int, p: int, fft_factor: int, beta: float,
 
 
 class OverlapPlan(nn.Module):
-    """Buffers: ``rho`` f32[8, F, 2], ``sigma`` i32[8], ``win_shifts``
-    i32[T] (signed, in (-F/2, F/2]), ``win_taps`` f32[T, 2] and the chunk
-    dechirp ``chunk_mod`` f32[h, 2].  ``sigma_list``/``shift_list`` keep
-    the unsigned Python ints of the JAX plan (roll amounts)."""
+    """Buffers: ``rho`` f32[8, F, 2], ``rho_period`` f32[8, P, 2],
+    ``sigma`` i32[8], ``win_shifts`` i32[T] (signed, in (-F/2, F/2]),
+    ``win_taps`` f32[T, 2] and the chunk dechirp ``chunk_mod`` f32[h, 2].
+    ``sigma_list``/``shift_list`` keep the unsigned Python ints of the JAX
+    plan (roll amounts).
+
+    rho_j[c] = beta_j exp(-2 pi i j c / (8 fft_factor)) has the period
+    P = 8 fft_factor in c, but its f32 table is periodic only to ~1e-12
+    (rounding of the float64 phase).  ``rho_period`` is the table's first
+    period, and the spectra take rho_j[c] as ``rho_period[j, c mod P]``,
+    so that down a column of the sheared walk (ops/overlap_spectra.py)
+    rho is one constant; ``rho`` stays the JAX plan's exact copy."""
 
     def __init__(self, sf: int, p: int, fft_factor: int, beta: float):
         super().__init__()
@@ -97,6 +105,9 @@ class OverlapPlan(nn.Module):
         f = self.fft_size
         signed = [s if s <= f // 2 else s - f for s in shifts]
         self.register_buffer("rho", torch.tensor(rho))
+        self.period = _R * fft_factor
+        self.register_buffer("rho_period",
+                             torch.tensor(rho[:, :self.period]).contiguous())
         self.register_buffer("sigma", torch.tensor(sigma, dtype=torch.int32))
         self.register_buffer("win_shifts",
                              torch.tensor(signed, dtype=torch.int32))
@@ -120,15 +131,17 @@ class OverlapPlan(nn.Module):
 
 def spectra_from_chunks(g: torch.Tensor, plan: OverlapPlan, num_hops: int):
     """G [..., num_hops + 7, F, 2] -> (fft_add, fft_add_w, h_single), each
-    [..., num_hops, K] — K2's plain version (roll-based j-sum and window
-    convolution, gr_lora_tpu/ops/overlap_dft.py:136-157)."""
+    [..., num_hops, K] — K2's and K5's plain version (roll-based j-sum
+    with rho from one period, and window convolution,
+    gr_lora_tpu/ops/overlap_dft.py:136-157)."""
     k = plan.bin_size
     f = plan.fft_size
+    rho = plan.rho_period.repeat(1, f // plan.period, 1)   # [8, F, 2]
     x = None
     for j in range(_R):
         gj = torch.roll(g[..., j:j + num_hops, :, :], plan.sigma_list[j],
                         dims=-2)
-        term = cmul(gj, plan.rho[j])
+        term = cmul(gj, rho[j])
         x = term if x is None else x + term           # [..., H, F, 2]
 
     # Top-band fold for all p (ops/dechirp.py docstring).

@@ -4,8 +4,10 @@
   steps of four bf16 products ``x[j] @ w`` ([rows, depth] @ [depth,
   width], f32 accumulate) into the slabs of one f32 scratch; the output
   [1, 1] is ``scratch[0, 0] + scratch[rows-1, 4 width - 1]``.  It measures
-  the tensor-core rate a hand-written WMMA kernel attains at the dot shape
-  of the main path (bench.py:636-639: (256, 512, 4352) at SF8 x ff 8).
+  the tensor-core rate a hand-written wgmma + TMA kernel attains at the
+  dot shape of the main path (bench.py:636-639: (256, 512, 4352) at SF8
+  x ff 8).  The kernel takes rows a multiple of 128, depth of 64 and
+  width of 256 (:data:`TILE`).
 - :class:`OverlapProbe` (P2) replaces tools/overlap_probe.py ``make``:
   ``steps`` steps of one product ``x @ w`` (kind ``"mxu"``), of the f32
   chain :func:`chain_round` ``rounds`` times over a [rows, 1280] slab
@@ -31,6 +33,8 @@ from .rdft_spectra import bf16_matmul
 
 #: The main path's dot shape (rows, depth, width) at SF8 x ff 8.
 MAIN_SHAPE = (256, 512, 4352)
+#: P1's tile (rows, depth, width): every shape it takes is a multiple.
+TILE = (128, 64, 256)
 #: P2's chain slab width (tools/overlap_probe.py).
 SLAB_COLS = 1280
 _KINDS = {"mxu": 1, "vpu": 2, "both": 3}
@@ -81,23 +85,29 @@ class RateProbe:
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
-            return self.plain(x, w)
-        out = self.kernel(x, w)
+            return self.plain(x, w)[0]
+        out = self.kernel(x, w)[0]
         self.launches += 1
         return out
 
-    def plain(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def plain(self, x: torch.Tensor, w: torch.Tensor):
+        """(out [1, 1], scratch [rows, 4 width]): slab j of the scratch is
+        ``x[j] @ w``."""
         y = bf16_matmul(x, w)                      # [4, rows, width]
-        return (y[0, 0, 0] + y[3, -1, -1]).reshape(1, 1)
+        scratch = y.permute(1, 0, 2).reshape(y.shape[1], -1)
+        return (y[0, 0, 0] + y[3, -1, -1]).reshape(1, 1), scratch
 
-    def kernel(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """The kernel's output [1, 1] for CUDA x [4, rows, depth] (not
-        counted)."""
+    def kernel(self, x: torch.Tensor, w: torch.Tensor):
+        """The kernel's (out [1, 1], scratch [rows, 4 width]) for CUDA x
+        [4, rows, depth] (not counted)."""
         _check(x, w)
         if x.ndim != 3 or x.shape[0] != 4:
             raise ValueError(f"x must be [4, rows, depth]: {tuple(x.shape)}")
         rows, depth = x.shape[1], x.shape[2]
         width = w.shape[1]
+        if any(n % t for n, t in zip((rows, depth, width), TILE)):
+            raise ValueError(f"P1 takes (rows, depth, width) in multiples of "
+                             f"{TILE}: {(rows, depth, width)}")
         scratch = torch.empty((rows, 4 * width), dtype=torch.float32,
                               device=x.device)
         out = torch.zeros((1, 1), dtype=torch.float32, device=x.device)
@@ -108,7 +118,7 @@ class RateProbe:
                                      rows, depth, width, self.steps,
                                      _build.stream_of(x))
         _build.check("grl_rate_probe", err)
-        return out
+        return out, scratch
 
 
 class OverlapProbe:

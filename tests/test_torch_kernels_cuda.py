@@ -278,13 +278,19 @@ def test_chunk_spectra_kernel_ragged_frames(dev):
 
 
 def test_rate_probe_matches_plain(dev):
-    """P1 at the main path's dot shape: its value within rtol 1e-3 of the
-    plain version (another summation order), launches counted."""
-    x, w, _ = (t.to(dev) for t in probe_inputs(256, 512, 4352))
-    probe = RateProbe()
-    out = probe(x, w)
-    assert probe.launches == 1 and out.shape == (1, 1)
-    torch.testing.assert_close(out, probe.plain(x, w), rtol=1e-3, atol=1e-3)
+    """P1 at the main path's dot shape and one other: all four slabs of
+    the last step's scratch and the value within rtol 1e-3 of the plain
+    version (another summation order), launches counted."""
+    for shape in ((256, 512, 4352), (128, 256, 1024)):
+        x, w, _ = (t.to(dev) for t in probe_inputs(*shape))
+        probe = RateProbe()
+        out, scratch = probe.kernel(x, w)
+        ref_out, ref_scratch = probe.plain(x, w)
+        torch.testing.assert_close(scratch, ref_scratch, rtol=1e-3,
+                                   atol=1e-3)
+        torch.testing.assert_close(out, ref_out, rtol=1e-3, atol=1e-3)
+        out = probe(x, w)
+        assert probe.launches == 1 and out.shape == (1, 1)
 
 
 @pytest.mark.parametrize("kind", ["mxu", "vpu", "both"])

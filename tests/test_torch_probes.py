@@ -55,6 +55,19 @@ def test_rate_probe_plain_matches_numpy():
     assert probe.flops(x, w) == 16 * 4 * 2 * 64 * 128 * 256
 
 
+def test_rate_probe_plain_scratch_holds_the_four_products():
+    """P1's plain scratch is laid out as the kernel's: slab j of [rows,
+    4 width] is x[j] @ w, and the value is its two corners."""
+    x, w, _ = probe_inputs(16, 32, 64, seed=3)
+    out, scratch = RateProbe().plain(x, w)
+    assert scratch.shape == (16, 4 * 64)
+    xs, ws = x.double().numpy(), w.double().numpy()
+    for j in range(4):
+        np.testing.assert_allclose(scratch[:, 64 * j:64 * (j + 1)].numpy(),
+                                   xs[j] @ ws, rtol=1e-5, atol=1e-5)
+    assert float(out) == float(scratch[0, 0] + scratch[-1, -1])
+
+
 @pytest.mark.parametrize("kind", ["mxu", "vpu", "both"])
 def test_overlap_probe_plain_matches_numpy(kind):
     x, w, v0 = probe_inputs(32, 64, 128, batch=1, seed=2)
