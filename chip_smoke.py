@@ -14,17 +14,21 @@ the final ``ok`` line):
    on the card at main-path shapes, with CUDA-event times of both:
    K1 rDFT peaks at SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8 event
    lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
-   spectra, K6 chunk spectra, K4 direct peaks and K5 overlap spectra on
-   one always-on block of 16 channels x 2048 hops at SF8 (K5 also on the
-   SF12 block of the multi-SF gateway).  Tolerances: K1, K3, K4b, K6 and
-   K4 sum bf16 products in another order than their plain versions — the
-   same peaks up to f32 ties, heights within rtol 1e-3, and the dense K3 /
-   K4b / K6 spectra within 1e-4 of the largest value; K2 and K5 round as
+   spectra (beside cuBLAS's time for its product alone, torch.matmul of
+   the same bf16 frame matrix and weights), K6 chunk spectra, K4 direct
+   peaks (its peak search fused: the call's peak allocation must stay
+   below one [lanes, hops, K] f32 array) and K5 overlap spectra on one
+   always-on block of 16 channels x 2048 hops at SF8 (K5 also on the SF12
+   block of the multi-SF gateway).  Tolerances: K1, K3, K4b, K6 and K4 sum
+   bf16 products in another order than their plain versions — the same
+   peaks up to f32 ties, heights within rtol 1e-3, and the dense K3 / K4b
+   / K6 spectra within 1e-4 of the largest value; K2 and K5 round as
    their plain versions do: equal bit for bit;
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
    backend "fused": K1 and K2) fed the golden SF8 collision on every
-   channel plus one single per channel, twice, then flushed;
+   channel plus one single per channel, twice, then flushed (K1's
+   launches printed per SF);
 5. always-on — the always-on gateway (PyramidGateway) at the
    rx_file_collision.grc point, 16 channels, 2048-hop blocks, once per
    kernel backend ("rdft": K3, "direct": K4b, "fused_direct": K4,
@@ -352,10 +356,12 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
 
     channels, t = iq_dev.shape[0], iq_dev.shape[1]
     mods = {"rdft_peaks": [], "overlap_peaks": []}
+    k1_by_sf = {}
     for sf in SFS:
         for m in gw.lattice(sf).modules():
             if isinstance(m, RdftPeaks):
                 mods["rdft_peaks"].append(m)
+                k1_by_sf.setdefault(sf, []).append(m)
             elif isinstance(m, OverlapPeaks):
                 mods["overlap_peaks"].append(m)
     for ms in mods.values():
@@ -375,6 +381,8 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
     torch.cuda.synchronize()
     flush_s = time.perf_counter() - t0
     launches = {k: sum(m.launches for m in ms) for k, ms in mods.items()}
+    k1_launches = {sf: sum(m.launches for m in ms)
+                   for sf, ms in k1_by_sf.items()}
     for i, pk in enumerate(feeds):
         got = _ok_pdus(pk)
         missing = [c for c in range(channels)
@@ -402,7 +410,7 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
           f"lattice={w['lattice']:.4f} tracker={w['tracker']:.4f} "
           f"decode={w['decode']:.4f}] feed2_samples_per_s={sps:.1f} "
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
-          f"launches={launches}")
+          f"launches={launches} k1_launches_by_sf={k1_launches}")
     return launches
 
 
@@ -431,6 +439,7 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
     import torch
 
     from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
+    from gr_lora_tpu_torch.ops.dechirp import frame_signal
     from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
@@ -465,15 +474,39 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         consts = [b for b in mod.buffers()]
         bound = _bound(_nbytes(x8, *consts) + dense_out,
                        lanes * hops * frame_ops(mod))
+        extra = ""
+        row = _row(err, ms, plain_ms, shape8, bound)
+        if name == "direct_spectra":
+            # cuBLAS on the product alone (not the same function: no
+            # folds, a bf16 [frames, 8K] output), the same bf16 frame
+            # matrix and weights.
+            fr = frame_signal(x8, mod.n, mod.hop, hops)
+            a = torch.cat([fr[..., 0], fr[..., 1]], dim=-1) \
+                .to(torch.bfloat16).reshape(-1, 2 * mod.n)
+            del fr
+            row["cublas_product_ms"] = _time_ms(
+                lambda: torch.matmul(a, mod.w), 5)
+            extra = f" cublas_product_ms={row['cublas_product_ms']:.4f}"
+            del a
         print(f"parity {tag} {name} {shape8}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound[0]:.4f}")
-        report[name].append(_row(err, ms, plain_ms, shape8, bound))
+              f"bound_ms={bound[0]:.4f}{extra}")
+        report[name].append(row)
         del mod
         torch.cuda.empty_cache()
 
     mod = DirectPeaks(cfg8, hops, 8).to(dev)
+    # The fused peak search writes no [lanes, hops, K] array: the call's
+    # peak allocation (planes and peaks) stays below one.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     kern = mod(x8)
+    torch.cuda.synchronize()
+    k4_alloc = torch.cuda.max_memory_allocated() - base
+    if k4_alloc >= 4 * lanes * hops * k:
+        fail(f"direct_peaks allocated {k4_alloc} bytes, as much as a "
+             f"dense [{lanes}, {hops}, {k}] f32 array")
     plain = mod.plain(x8)
     _, faw, _ = mod.front.plain(x8)
     torch.cuda.synchronize()
@@ -487,7 +520,7 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
                    lanes * hops * 32 * mod.front.n * k)
     print(f"parity K4 direct_peaks {shape}: max_abs_err={err:.6g} "
           f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound[0]:.4f}")
+          f"bound_ms={bound[0]:.4f} alloc_bytes={k4_alloc}")
     report["direct_peaks"].append(_row(err, ms, plain_ms, shape, bound))
     del mod
     torch.cuda.empty_cache()
@@ -736,6 +769,13 @@ def probes(dev, card: str, report: dict, launches: dict) -> None:
         bound2))
 
 
+#: Where each peak kernel's top-M runs.
+EPILOGUE = {
+    "rdft_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
+    "overlap_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
+    "direct_peaks": "fused: gr_lora_tpu_torch/csrc/direct_spectra.cu "
+                    "(row sweep in the product's epilogue)",
+}
 #: route, source, and the TPU kernel (file:line of its function) of each.
 META = {
     "rdft_peaks": ("cuda", "gr_lora_tpu_torch/csrc/rdft_spectra.cu",
@@ -844,8 +884,8 @@ def main() -> None:
         entry = {"name": name, "route": route, "source": source,
                  "replaces": replaces, "launches": launches[name],
                  **last, "max_abs_err": max(r["max_abs_err"] for r in rows)}
-        if name.endswith("_peaks"):
-            entry["epilogue"] = "gr_lora_tpu_torch/csrc/peak_topm.cu"
+        if name in EPILOGUE:
+            entry["epilogue"] = EPILOGUE[name]
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

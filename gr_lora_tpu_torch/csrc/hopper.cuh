@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels, as
-// inline PTX: mbarriers, TMA tile loads (cp.async.bulk.tensor) and their
-// tensor maps, wgmma descriptors and the m64n256k16 bf16 product, and the
-// per-thread cp.async copies.
+// inline PTX: mbarriers, 2-D and 3-D TMA tile loads (cp.async.bulk.tensor)
+// and their tensor maps (128- and 64-byte swizzles), wgmma descriptors and
+// the m64n256k16 bf16 product, and the per-thread cp.async copies.
 //
 // Tensor maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPointByVersion, so the library links against the CUDA
@@ -78,6 +78,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
         : "memory");
 }
 
+// 3-D tile load of the box at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+        "r"(c1), "r"(c2)
+        : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<uint64_t>(map))
@@ -91,12 +103,12 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// Tensor map of a row-major bf16 matrix [rows, cols] cut into boxes of
-// box_rows x box_cols (box_cols * 2 <= 128 bytes), 128-byte swizzled as
-// wgmma's SWIZZLE_128B layouts expect.  Returns a cudaError_t.
-inline int make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
-                         uint64_t cols, uint32_t box_rows,
-                         uint32_t box_cols) {
+// Encode a bf16 tensor map of `rank` dimensions (dims[0] innermost; byte
+// strides of dims 1..); elements out of bounds read as zero.  Returns a
+// cudaError_t.
+inline int encode_bf16(CUtensorMap* map, const void* base, uint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
     cudaError_t err = cudaGetDriverEntryPointByVersion(
@@ -104,16 +116,39 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
     if (err != cudaSuccess) return (int)err;
     if (fn == nullptr || q != cudaDriverEntryPointSuccess)
         return cudaErrorNotSupported;
+    const cuuint32_t estr[3] = {1, 1, 1};
+    const CUresult r = reinterpret_cast<EncodeTiled>(fn)(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+        dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major bf16 matrix [rows, cols] cut into boxes of
+// box_rows x box_cols (box_cols * 2 <= 128 bytes), 128-byte swizzled as
+// wgmma's SWIZZLE_128B layouts expect.  Returns a cudaError_t.
+inline int make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
+                         uint64_t cols, uint32_t box_rows,
+                         uint32_t box_cols) {
     const cuuint64_t dims[2] = {cols, rows};
     const cuuint64_t strides[1] = {cols * 2};
     const cuuint32_t box[2] = {box_cols, box_rows};
-    const cuuint32_t estr[2] = {1, 1};
-    const CUresult r = reinterpret_cast<EncodeTiled>(fn)(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-        dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+    return encode_bf16(map, base, 2, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// Tensor map of a bf16 array [planes, rows, cols] cut into boxes of
+// box_rows x box_cols of one plane (box_cols * 2 <= 64 bytes), 64-byte
+// swizzled as wgmma's SWIZZLE_64B K-major layout expects; rows past
+// `rows` read as zero.  Returns a cudaError_t.
+inline int make_map_bf16_planes(CUtensorMap* map, const void* base,
+                                uint64_t planes, uint64_t rows, uint64_t cols,
+                                uint32_t box_rows, uint32_t box_cols) {
+    const cuuint64_t dims[3] = {cols, rows, planes};
+    const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+    const cuuint32_t box[3] = {box_cols, box_rows, 1};
+    return encode_bf16(map, base, 3, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -128,6 +163,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
     d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
     d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
     d |= (uint64_t)1 << 62;                     // SWIZZLE_128B
+    return d;
+}
+
+// The same for the 64-byte swizzle (8-row atoms of 64 bytes, 512 B each).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+    uint64_t d = 0;
+    d |= (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4);
+    d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+    d |= (uint64_t)2 << 62;                     // SWIZZLE_64B
     return d;
 }
 

@@ -140,6 +140,15 @@ def test_kernel_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         launch_topm(*(torch.zeros(4, 64, device=dev) for _ in range(3)),
                     5.0, 17)
+    # The direct kernel's limits: hop = n / 8 a multiple of 32 samples (p 1
+    # at SF7 gives 16), max_peaks at most 16.
+    x = torch.zeros((2, 4096, 2), device=dev)
+    for mod in (DirectSpectra(_cfg(7, 8, 1), 16),
+                DirectPeaks(_cfg(7, 8, 1), 16)):
+        with pytest.raises(RuntimeError, match="multiple of 32"):
+            mod.to(dev)(x)
+    with pytest.raises(ValueError, match="max_peaks"):
+        DirectPeaks(cfg, 16, 17).to(dev)(x)
 
 
 def _dense_close(kern, plain, rtol):
@@ -167,7 +176,7 @@ def test_dense_bf16_kernels_match_plain(dev, cls, sf, ff):
                   faw=plain[1], threshold=cfg.threshold)
 
 
-@pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8)])
+@pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8), (7, 2)])
 def test_direct_peaks_kernel_matches_plain(dev, sf, ff):
     cfg = _cfg(sf, ff)
     iq, total = _lanes(cfg, 3, sf + 2)
@@ -179,6 +188,30 @@ def test_direct_peaks_kernel_matches_plain(dev, sf, ff):
     assert plain[3].any()
     _, faw, _ = mod.front.plain(x)
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("sf,ff", [(7, 2), (8, 8)])
+def test_direct_kernels_ragged_frames(dev, sf, ff):
+    """K4b and K4 on a frame count that is no multiple of the 128-frame
+    tile, from a stream whose length is no multiple of hop and shorter
+    than the frames need (zero-padded): K4b within 1e-4 of its plain
+    version with zero spectra on the padded tail, K4 the plain peaks."""
+    cfg = _cfg(sf, ff)
+    iq, total = _lanes(cfg, 2, sf + 20)
+    hop = cfg.num_samples // 8
+    x = torch.from_numpy(iq[:, :total - hop // 2 - 3]).to(dev)
+    assert x.shape[1] % hop
+    nh = num_hops_for(cfg, total) + 40
+    assert nh % 128
+    spec = DirectSpectra(cfg, nh).to(dev)
+    kern = spec(x)
+    plain = spec.plain(x)
+    _dense_close(kern, plain, 1e-4)
+    assert float(kern[0][:, -30:].abs().max()) == 0.0
+    mod = DirectPeaks(cfg, nh, 8).to(dev)
+    ref = mod.plain(x)
+    assert ref[3].any()
+    compare_peaks(ref, mod(x), 1e-3, faw=plain[1], threshold=cfg.threshold)
 
 
 @pytest.mark.parametrize("sf,ff,p", [(8, 8, 2), (10, 8, 2), (12, 8, 2),
