@@ -32,7 +32,7 @@ from chip_smoke import (AO_BACKENDS, AO_BLOCK_HOPS, AO_CHANNELS, AO_CHUNK,
                         fail, north_star_fixture)
 
 TIMED_PASSES = 3
-TOP_KERNELS = 6
+TOP_KERNELS = 10
 
 
 def _pass(gw, iq, chunk: int | None = None) -> float:

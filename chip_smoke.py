@@ -12,18 +12,22 @@ the final ``ok`` line):
    and static shared memory of every kernel;
 3. parity  — each hand-written kernel against its plain PyTorch version
    on the card at main-path shapes, with CUDA-event times of both:
-   K1 rDFT peaks at SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8 event
-   lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
-   spectra (beside cuBLAS's time for its product alone, torch.matmul of
-   the same bf16 frame matrix and weights), K6 chunk spectra, K4 direct
-   peaks (its peak search fused: the call's peak allocation must stay
-   below one [lanes, hops, K] f32 array) and K5 overlap spectra on one
-   always-on block of 16 channels x 2048 hops at SF8 (K5 also on the SF12
-   block of the multi-SF gateway).  Tolerances: K1, K3, K4b, K6 and K4 sum
-   bf16 products in another order than their plain versions — the same
-   peaks up to f32 ties, heights within rtol 1e-3, and the dense K3 / K4b
-   / K6 spectra within 1e-4 of the largest value; K2 and K5 round as
-   their plain versions do: equal bit for bit;
+   K1 rDFT peaks at SF7/SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8
+   event lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
+   spectra and K6 chunk spectra (each beside cuBLAS's time for its bare
+   product, torch.matmul of the same bf16 operands; ``peak_topm`` timed at
+   M = 8 and M = 32 on K3's spectra), K4 direct peaks (its
+   peak search fused: the call's peak allocation must stay below one
+   [lanes, hops, K] f32 array) and K5 overlap spectra on one always-on
+   block of 16 channels x 2048 hops at SF8 (K5 also on the SF12 block of
+   the multi-SF gateway); then, on 3 lanes of one packet each, K5 and K2
+   at SF7 x fft_factor 16, every kernel backend's lattice at M = 32, K3,
+   K1 and K6 at SF7 p 1 (hop 16 samples) and K3 and K1 on a ragged frame
+   count.  Tolerances: K1, K3, K4b, K6 and K4 sum bf16 products in
+   another order than their plain versions — the same peaks up to f32
+   ties, heights within rtol 1e-3, and the dense K3 / K4b / K6 spectra
+   within 1e-4 of the largest value; K2 and K5 round as their plain
+   versions do: equal bit for bit;
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
    backend "fused": K1 and K2) fed the golden SF8 collision on every
@@ -290,7 +294,7 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
     from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
 
     lanes = gw.event_batch
-    for sf in (8, 9):
+    for sf in (7, 8, 9):
         st = gw.sf_states[sf]
         mod = gw.lattice(sf)
         if not isinstance(mod, RdftPeaks):
@@ -307,9 +311,11 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         shape = f"SF{sf} [{lanes}, {x.shape[1]}, 2] -> [{lanes}, " \
                 f"{mod.num_frames}, {mod.max_peaks}]"
         fr = mod.front
+        # Four [n] x [2 (K + 1)] dots a frame: bins 0..K (the TPU plan's
+        # lane pad past K is not the function's work).
         bound = _bound(_nbytes(x, fr.w, fr.consts)
                        + _peak_bytes(lanes, mod.num_frames, mod.max_peaks),
-                       lanes * mod.num_frames * 16 * fr.n * fr.kp)
+                       lanes * mod.num_frames * 16 * fr.n * (fr.k + 1))
         print(f"parity K1 rdft_peaks {shape}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound[0]:.4f}")
@@ -439,7 +445,6 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
     import torch
 
     from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
-    from gr_lora_tpu_torch.ops.dechirp import frame_signal
     from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
@@ -452,15 +457,17 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
               f"[{x8.shape[0]}, {hops}, {cfg8.bin_size}]")
     lanes, k = x8.shape[0], cfg8.bin_size
     dense_out = 3 * 4 * lanes * hops * k          # fa, faw, hs f32
-    # bf16 operations a frame: K3 four [n] x [2 kp] dots, K4b one
-    # [2n] x [8K] product, K6 eight [R w] x [K] products.
+    # bf16 operations a frame, over what the function needs: K3 four
+    # [n] x [2 (K + 1)] dots (bins 0..K; the TPU plan pads them to
+    # K + 128), K4b one [2n] x [8K] product, K6 eight [R 2 hop] x [K]
+    # products (its chunk rows' pad columns meet zero weights).
     for tag, name, cls, frame_ops in (
             ("K3", "rdft_spectra", RdftSpectra,
-             lambda m: 16 * m.n * m.kp),
+             lambda m: 16 * m.n * (m.k + 1)),
             ("K4b", "direct_spectra", DirectSpectra,
              lambda m: 32 * m.n * k),
             ("K6", "chunk_spectra", ChunkSpectra,
-             lambda m: 2 * m.w.shape[0] * m.w.shape[1] * k)):
+             lambda m: 2 * 8 * 8 * 2 * m.hop * k)):
         mod = cls(cfg8, hops).to(dev)
         kern = mod.kernel(x8)
         plain = mod.plain(x8)
@@ -468,26 +475,25 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         err = _dense_check(name, kern, plain, 1e-4)
         _, moved = _compare(peaks_plain(*kern, thr, 8),
                             peaks_plain(*plain, thr, 8), plain[1], 1e-3, thr)
+        if tag == "K3":
+            _time_topm(kern, thr)
         del kern, plain
         ms = _time_ms(lambda: mod.kernel(x8), 5)
         plain_ms = _time_ms(lambda: mod.plain(x8), 3)
-        consts = [b for b in mod.buffers()]
+        # The inputs the function needs: iq and the weights of one
+        # version (the kernel's re-laid W holds the same values).
+        consts = [b for nm, b in mod.named_buffers()
+                  if nm not in ("w_tiles", "w_kernel")]
         bound = _bound(_nbytes(x8, *consts) + dense_out,
                        lanes * hops * frame_ops(mod))
-        extra = ""
         row = _row(err, ms, plain_ms, shape8, bound)
-        if name == "direct_spectra":
-            # cuBLAS on the product alone (not the same function: no
-            # folds, a bf16 [frames, 8K] output), the same bf16 frame
-            # matrix and weights.
-            fr = frame_signal(x8, mod.n, mod.hop, hops)
-            a = torch.cat([fr[..., 0], fr[..., 1]], dim=-1) \
-                .to(torch.bfloat16).reshape(-1, 2 * mod.n)
-            del fr
-            row["cublas_product_ms"] = _time_ms(
-                lambda: torch.matmul(a, mod.w), 5)
-            extra = f" cublas_product_ms={row['cublas_product_ms']:.4f}"
-            del a
+        # cuBLAS on the bare product (not the same function: no dechirp,
+        # folds or recombination, a bf16 output) of the kernel's own bf16
+        # operands.
+        a, w = _product_operands(mod, x8)
+        row["cublas_product_ms"] = _time_ms(lambda: torch.matmul(a, w), 5)
+        extra = f" cublas_product_ms={row['cublas_product_ms']:.4f}"
+        del a, w
         print(f"parity {tag} {name} {shape8}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound[0]:.4f}{extra}")
@@ -554,6 +560,148 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
             _unfused_floor_ms(ops)
         del mod, g
         torch.cuda.empty_cache()
+
+
+def _time_topm(spectra, threshold: float) -> None:
+    """peak_topm's two instances on one block of dense spectra: M = 8 (the
+    main path's register list) and M = 32 (the refilling instance)."""
+    from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm
+
+    fa, faw, hs = spectra
+    k = faw.shape[-1]
+    ms = {m: _time_ms(lambda m=m: launch_topm(fa, faw, hs, threshold, m), 5)
+          for m in (8, 32)}
+    bound = _bound(_nbytes(fa, faw, hs))
+    print(f"parity peak_topm [{faw.numel() // k} rows, {k}] (K3's spectra): "
+          f"M8_ms={ms[8]:.4f} M32_ms={ms[32]:.4f} bound_ms={bound[0]:.4f}")
+
+
+def _product_operands(mod, x):
+    """(A, W) bf16 of a dense module's tensor-core product as its kernel
+    runs it: K3 its A tiles (plain and windowed rows) and re-laid W, K4b
+    the frame matrix [Re x | Im x] and W, K6 the frames' chunk rows (the
+    pad columns dropped) and its re-laid W."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra, live_width
+    from gr_lora_tpu_torch.ops.dechirp import frame_signal
+    from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra, frame_tiles
+
+    if isinstance(mod, RdftSpectra):
+        a = frame_tiles(x, mod.consts, mod.n, mod.hop, mod.num_frames)
+        return a.reshape(-1, a.shape[-1]), mod.w_tiles
+    if isinstance(mod, ChunkSpectra):
+        lw = live_width(mod.hop)
+        fr = mod.chunks(x).unfold(-2, 8, 1).transpose(-1, -2)[..., :lw]
+        return (fr.reshape(-1, 8 * lw).to(torch.bfloat16).contiguous(),
+                mod.w_kernel)
+    fr = frame_signal(x, mod.n, mod.hop, mod.num_frames)
+    return (torch.cat([fr[..., 0], fr[..., 1]], dim=-1)
+            .to(torch.bfloat16).reshape(-1, 2 * mod.n), mod.w)
+
+
+def _packet_lanes(cfg, lanes: int, seed: int, dev):
+    """[lanes, T, 2] on the card: noise 0.01 from default_rng(seed) and
+    one packet a lane at a lane-specific offset; and its hop count."""
+    import torch
+
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.models.pyramid import num_hops_for
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    n = cfg.num_samples
+    pkt = 0.2 * modulate(encode(bytes([1, 2, 3, cfg.sf]), cfg), cfg,
+                         pad_front=0, pad_back=0)
+    total = len(pkt) + 6 * n
+    rng = np.random.default_rng(seed)
+    iq = (0.01 * (rng.standard_normal((lanes, total))
+                  + 1j * rng.standard_normal((lanes, total)))
+          ).astype(np.complex64)
+    for i in range(lanes):
+        iq[i, n + 37 * i:n + 37 * i + len(pkt)] += pkt
+    return torch.from_numpy(to_ri(iq)).to(dev), num_hops_for(cfg, total)
+
+
+def _plain_spectra(front, x):
+    """A dense front end's plain (fa, faw, hs) of iq ``x``."""
+    from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
+
+    if isinstance(front, OverlapSpectra):
+        return front.plain_from_chunks(front.plan.chunk_dft(x, front.num_hops))
+    return front.plain(x)
+
+
+def parity_extra(cfg8, dev) -> None:
+    """Phase 3, the shapes beyond the main path, on 3 lanes of one packet
+    each: K5 and K2 at SF7 x fft_factor 16 (bit for bit), every kernel
+    backend's lattice at M = 32 (the plain peaks up to f32 ties), K3, K1
+    and K6 at SF7 p 1, K3 and K1 on a ragged frame count."""
+    import torch
+
+    from gr_lora_tpu_torch.models.pyramid import peak_lattice_fn
+    from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+    from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+    from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
+
+    def cfg_of(sf, ff, p=2):
+        return cfg8.replace(sf=sf, fft_factor=ff, p=p, payload_len=4)
+
+    cfg = cfg_of(7, 16)
+    x, nh = _packet_lanes(cfg, 3, 7, dev)
+    mod = OverlapPeaks(cfg, nh, 8).to(dev)
+    g = mod.plan.chunk_dft(x, nh)
+    _dense_check("overlap_spectra SF7 ff16", mod.front.kernel(g),
+                 mod.front.plain_from_chunks(g), 0.0)
+    kern, plain = mod.from_chunks(g), mod.plain_from_chunks(g)
+    if not (bool(plain[3].any())
+            and all(torch.equal(a, b) for a, b in zip(kern, plain))):
+        fail("overlap_peaks SF7 ff16 differs from its plain version")
+    print(f"parity-extra K5, K2 SF7 ff16 G {list(g.shape)}: equal bit for "
+          "bit")
+    del g
+
+    thr = float(cfg8.threshold)
+    x, nh = _packet_lanes(cfg8, 3, 8, dev)
+    for backend in ("rdft", "direct", "fused_direct", "fastp", "pallas",
+                    "fused"):
+        lat = peak_lattice_fn(cfg8, nh, 32, backend).to(dev)
+        kern = lat(x)
+        sp = _plain_spectra(lat.front, x)
+        plain = peaks_plain(*sp, thr, 32)
+        if kern[0].shape != plain[0].shape or not bool(plain[3].any()):
+            fail(f"{backend} at M = 32: peaks {tuple(kern[0].shape)}")
+        err, ties = _compare(kern, plain, sp[1], 1e-3, thr)
+        print(f"parity-extra {backend} ({type(lat).__name__}) SF8 M=32: "
+              f"max_abs_err={err:.6g} tie_peaks={ties}")
+
+    cfg = cfg_of(7, 8, 1)
+    x, nh = _packet_lanes(cfg, 3, 9, dev)
+    for cls in (RdftSpectra, ChunkSpectra):
+        mod = cls(cfg, nh).to(dev)
+        err = _dense_check(f"{cls.__name__} SF7 p1", mod.kernel(x),
+                           mod.plain(x), 1e-4)
+        print(f"parity-extra {cls.__name__} SF7 p1 (hop 16) "
+              f"[{x.shape[0]}, {nh}, {cfg.bin_size}]: max_abs_err={err:.6g}")
+    mod = RdftPeaks(cfg, nh, 8).to(dev)
+    sp = mod.front.plain(x)
+    err, ties = _compare(mod(x), mod.plain(x), sp[1], 1e-3, thr)
+    print(f"parity-extra RdftPeaks SF7 p1: max_abs_err={err:.6g} "
+          f"tie_peaks={ties}")
+
+    x, nh = _packet_lanes(cfg8, 2, 10, dev)
+    x = x[:, :x.shape[1] - 37]
+    nh += 41
+    mod = RdftPeaks(cfg8, nh, 8).to(dev)
+    sp = mod.front.plain(x)
+    err = _dense_check("rdft_spectra ragged", mod.front.kernel(x), sp, 1e-4)
+    _, ties = _compare(mod(x), mod.plain(x), sp[1], 1e-3, thr)
+    print(f"parity-extra RdftSpectra, RdftPeaks SF8 ragged [{x.shape[0]}, "
+          f"{nh} hops] from T={x.shape[1]}: max_abs_err={err:.6g} "
+          f"tie_peaks={ties}")
+    torch.cuda.empty_cache()
 
 
 def _kernel_modules(module, name: str) -> list:
@@ -774,7 +922,8 @@ EPILOGUE = {
     "rdft_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
     "overlap_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
     "direct_peaks": "fused: gr_lora_tpu_torch/csrc/direct_spectra.cu "
-                    "(row sweep in the product's epilogue)",
+                    "(row sweep in the product's epilogue) for M <= 16; "
+                    "a larger M runs direct_spectra and peak_topm.cu",
 }
 #: route, source, and the TPU kernel (file:line of its function) of each.
 META = {
@@ -790,7 +939,7 @@ META = {
                      "gr_lora_tpu/ops/pallas_direct.py:244"),
     "overlap_spectra": ("cuda", "gr_lora_tpu_torch/csrc/overlap_spectra.cu",
                         "gr_lora_tpu/ops/pallas_overlap.py:85"),
-    "chunk_spectra": ("cuda", "gr_lora_tpu_torch/csrc/chunk_spectra.cu",
+    "chunk_spectra": ("cuda", "gr_lora_tpu_torch/csrc/direct_spectra.cu",
                       "gr_lora_tpu/ops/pallas_frontend.py:134"),
     "rate_probe": ("cuda", "gr_lora_tpu_torch/csrc/probes.cu",
                    "bench.py:448"),
@@ -857,6 +1006,7 @@ def main() -> None:
         parity(gw, iq_dev, singles, report)
         parity_dense(ao_cfg, torch.from_numpy(ao_iq[:, :block]).to(dev),
                      cfg12, x12, report)
+        parity_extra(ao_cfg, dev)
     del x12
     torch.cuda.empty_cache()
 

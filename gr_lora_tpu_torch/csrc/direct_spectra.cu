@@ -1,9 +1,10 @@
-// K4b and K4: the direct pyramid spectra and peak lattice, one bf16 product
-// per hop frame from the raw [T, 2] IQ of each lane, on wgmma + TMA.
+// K4b, K4 and K6: the direct pyramid spectra and peak lattice, and the
+// chunk-row spectra, as one bf16 product per hop frame on wgmma + TMA.
 //
 // Replaces gr_lora_tpu/ops/pallas_direct.py `make_direct_spectra` /
-// `_kernel` (K4b) and `make_direct_peaks` / `_peaks_kernel` (K4).  Per
-// frame f (samples x = iq[f*hop .. f*hop + n)):
+// `_kernel` (K4b) and `make_direct_peaks` / `_peaks_kernel` (K4), and
+// gr_lora_tpu/ops/pallas_frontend.py `make_pallas_spectra` / `_kernel`
+// (K6).  Per frame f (samples x = iq[f*hop .. f*hop + n)):
 //
 //   y[8K]  = bf16([Re x | Im x]) @ W,   W = bf16 [2n, 8K]   (f32 accumulate)
 //   W's columns, 16 bins at a time: [c0 re | c0 im | ... | c3 re | c3 im],
@@ -11,45 +12,58 @@
 //   weight down[s] (* kaiser[s]) * exp(-2 pi i s b / F) rounded once to bf16
 //   m_c    = |y_c|;  fa = m0 + m1,  hs = max(m0, m1),  faw = m2 + m3
 //
-// K4b writes fa / faw / hs [lanes, frames, K].  K4 writes only the
+// K4b and K6 write fa / faw / hs [lanes, frames, K].  K4 writes only the
 // peak_lattice_fn contract [lanes, frames, M]: per frame the strict cyclic
 // local maxima of faw above the threshold, the top M by value with ties
 // to the lower bin, h and h_single read from fa and hs at those bins;
 // unfilled slots hold bin 0, zero heights and valid 0.  Numeric class of
-// the TPU kernel: the RAW samples are rounded to bf16 once (the dechirp
+// the TPU kernels: the RAW samples are rounded to bf16 once (the dechirp
 // lives in W), each weight once, and the products accumulate in f32; the
 // magnitudes and folds round each product and sum on their own, as the
-// plain version does.
+// plain versions do.  K6 is K4b's function from the JAX kernel's chunk-row
+// layout: its W is pallas_frontend._component_weights' bf16 values with
+// the rows in chunk order (depth r lw + c: column c of chunk row r) and
+// the columns in the 16-bin interleave above, the same values as K4b's W,
+// so the two differ only in the f32 summation order.
 //
 // Bound on the card: tensor-core operations (16 n K MACs a frame; 1.1
-// TFLOP at SF8 x ff 8 on 16 x 2048 frames), beside K4b's 12 K bytes of
-// output a frame.
+// TFLOP at SF8 x ff 8 on 16 x 2048 frames), beside the 12 K bytes of
+// output a frame of K4b and K6.
 //
-// Design.  A pre-pass (chunk_planes_kernel) writes each lane's samples
-// once as two bf16 planes (re, im) [rows, hop], rows = frames + n / hop - 1,
-// zero past t_len.  Frame f at depth d < n of either half is plane row
-// f + d / hop, column d % hop, so the A tile of 128 consecutive frames and
-// 32 depths is one box of a 3-D tensor map (plane, row, column), 64 bytes
-// wide (hop is a multiple of 32 samples, so a box never crosses a plane
-// row; 64-byte swizzle), and rows past the plane read as zero: the frame
-// matrix is never written and no tile reads another lane's rows.  B is W
-// through P1's MN-major map (128-byte swizzle, trans-b 1).  The product is
-// P1's core (probes.cu): one producer thread keeps TMA loads of 64-deep
-// stages (two A boxes, four 64-column B boxes) in flight through a 4-stage
-// ring of full / empty mbarriers, and two consumer warpgroups each run
-// wgmma m64n256k16 on 64 frames x 256 columns (32 bins), f32 accumulators
-// in registers.  wgmma's accumulator layout puts all eight components of a
-// bin in one thread (column b + 16 m lands at register group j + 2 m), so
-// the magnitudes and folds are taken in registers: no shared-memory
-// staging.  K4b: a persistent grid walks (column tile, lane, frame tile)
-// units, column tile outermost, so the blocks in flight share W's column
-// tiles in L2, and stores each thread's bins as float2.  K4: a unit owns
-// a frame tile of a lane and sweeps its whole row of column tiles; each
-// quad of lanes holds one frame's 32 bins of a tile, sees its neighbours
-// through shuffles, carries the previous tile's last bin, defers bin 0
-// until bin K-1 is known and each tile's last bin until the next tile's
-// first, and inserts each peak into its frame's top-M list in shared
-// memory (the quad's lanes in turn).  No [frames, K] array is written.
+// Design.  The product is the ring of tma_ring.cuh (P1's core): one
+// producer thread keeps TMA loads of 64-deep stages (two A boxes, four
+// 64-column B boxes) in flight through 4 buffers, and two consumer
+// warpgroups each run wgmma m64n256k16 on 64 frames x 256 columns (32
+// bins), f32 accumulators in registers.  A is read in boxes of 128 frames
+// x 32 depths (64 bytes, 64-byte swizzle) from a bf16 copy of the samples
+// that a pre-pass writes once; the A walk maps a depth to its box:
+//
+//   K4b (PlaneWalk): two planes (re, im) [rows, hop] a lane, rows = frames
+//     + n / hop - 1: frame f at depth d < n of either half is plane row
+//     f + d / hop, column d % hop (hop a multiple of 32 samples, so a box
+//     never crosses a plane row);
+//   K6 (ChunkWalk): the chunk rows [rows, w] a lane, row r = [re(hop r) |
+//     im(hop r) | 0] (w = 2 hop rounded up to 128): depth r lw + c is row
+//     f + r, column c, lw = 2 hop rounded up to 32, so any hop works and
+//     the boxes wholly in the pad columns [lw, w) are never loaded (their
+//     weight rows are zero).
+//
+// Rows past the lane read as zero: no frame matrix is written and no tile
+// reads another lane's rows.  B is W through P1's MN-major map (128-byte
+// swizzle, trans-b 1).  wgmma's accumulator layout puts all eight
+// components of a bin in one thread (column b + 16 m lands at register
+// group j + 2 m), so the magnitudes and folds are taken in registers: no
+// shared-memory staging.  K4b / K6: a persistent grid walks (column tile,
+// lane, frame tile) units, column tile outermost, so the blocks in flight
+// share W's column tiles in L2, and stores each thread's bins as float2.
+// K4: a unit owns a frame tile of a lane and sweeps its whole row of
+// column tiles; each quad of lanes holds one frame's 32 bins of a tile,
+// sees its neighbours through shuffles, carries the previous tile's last
+// bin, defers bin 0 until bin K-1 is known and each tile's last bin until
+// the next tile's first, and inserts each peak into its frame's top-M list
+// in shared memory (the quad's lanes in turn).  No [frames, K] array is
+// written.  The lists take M <= 16 (230 464 B of shared memory at 16);
+// ops/direct.py routes a larger M through K4b and peak_topm.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,22 +72,20 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
-constexpr int kBm = 128;           // frames per tile (2 warpgroups x 64)
+using ring::kBk;
+using ring::kBm;
+using ring::kBox;
+using ring::kBoxA;
 constexpr int kBn = 256;           // W columns per tile
 constexpr int kTileBins = kBn / 8; // 32 bins per tile
-constexpr int kBk = 64;            // depth per stage
-constexpr int kBox = 32;           // depth per A box (64 bytes)
-constexpr int kStages = 4;
-constexpr int kThreads = 384;      // 2 consumer warpgroups + 1 producer
 constexpr int kMaxM = 16;
-constexpr uint32_t kBoxA = kBm * kBox * 2;     // 8 KB: 128 rows x 64 B
+constexpr int kR = 8;              // frames per symbol (n / hop)
 constexpr uint32_t kStageA = 2 * kBoxA;        // 16 KB
-constexpr uint32_t kStageB = kBk * kBn * 2;    // 32 KB: 4 x (64 rows x 128 B)
-constexpr size_t kSmem = kStages * (kStageA + kStageB) + 1024 +
-                         2 * kStages * sizeof(uint64_t);
+constexpr uint32_t kStageB = kBn / 64 * ring::kBoxB;   // 32 KB
 
 struct Cand {
     float v;      // faw
@@ -83,7 +95,7 @@ struct Cand {
 };
 
 struct Out {
-    float* fa;          // K4b: [lanes, frames, k] each
+    float* fa;          // K4b, K6: [lanes, frames, k] each
     float* faw;
     float* hs;
     int* bins;          // K4: [lanes, frames, m] each
@@ -137,6 +149,31 @@ __device__ __forceinline__ void insert(Cand* list, int m, const Cand& c) {
     }
     list[pos] = c;
 }
+
+// K4b's A walk: the box of depths d .. d + 31 of the frames f0 .. f0 + 127
+// of `lane` in the planes [lanes, 2, rows, hop].
+struct PlaneWalk {
+    int n, hop;
+    __device__ void box(int lane, int f0, int d, int& c0, int& c1,
+                        int& c2) const {
+        const int part = d >= n;                 // 0 re, 1 im
+        const int dd = d - part * n;
+        c0 = dd % hop;
+        c1 = f0 + dd / hop;
+        c2 = 2 * lane + part;
+    }
+};
+
+// K6's A walk: the same box in the chunk rows [lanes, rows, w].
+struct ChunkWalk {
+    int lw;
+    __device__ void box(int lane, int f0, int d, int& c0, int& c1,
+                        int& c2) const {
+        c0 = d % lw;
+        c1 = f0 + d / lw;
+        c2 = lane;
+    }
+};
 
 // Unit u's (lane * mtiles + frame tile, first column tile).
 template <bool kPeaks>
@@ -265,20 +302,16 @@ __device__ __forceinline__ void finish_sweep(const Sweep (&sw)[2],
     }
 }
 
-template <bool kPeaks>
-__global__ void __launch_bounds__(kThreads, 1)
+// depth: the product's depth (2n for K4b, R lw for K6), a multiple of kBk.
+template <bool kPeaks, class Walk>
+__global__ void __launch_bounds__(ring::kThreads, 1)
 direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_w, Out out,
-                      int lanes, int frames, int n, int hop, int k, int m,
-                      float threshold) {
+                      Walk walk, int lanes, int frames, int depth, int k,
+                      int m, float threshold) {
     extern __shared__ unsigned char smem_raw[];
-    // SWIZZLE_128B / 64B tiles must start on a 1024-byte boundary.
-    unsigned char* sa = reinterpret_cast<unsigned char*>(
-        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    unsigned char* sb = sa + kStages * kStageA;
-    uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
-    uint64_t* empty = full + kStages;
-    Cand* lists = reinterpret_cast<Cand*>(empty + kStages);  // [128][m]
+    const ring::Ring rg = ring::make(smem_raw, kStageA + kStageB);
+    Cand* lists = reinterpret_cast<Cand*>(rg.tail());    // K4: [128][m]
 
     const int mtiles = (frames + kBm - 1) / kBm;
     const int ntiles = k / kTileBins;
@@ -286,17 +319,8 @@ direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
     const long long units =
         kPeaks ? row_units : (long long)row_units * ntiles;
     const int sweep = kPeaks ? ntiles : 1;
-    const int kblocks = 2 * n / kBk;
+    const int kblocks = depth / kBk;
     const int wg = threadIdx.x / 128;
-
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < kStages; ++s) {
-            hopper::mbar_init(&full[s], 1);      // the producer's expect_tx
-            hopper::mbar_init(&empty[s], 2);     // one arrive a consumer WG
-        }
-        hopper::mbar_fence_init();
-    }
-    __syncthreads();
 
     if (wg == 2) {
         // Producer warpgroup: one thread starts every TMA load.
@@ -304,37 +328,25 @@ direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
         if (threadIdx.x == 256) {
             hopper::tma_prefetch_map(&map_a);
             hopper::tma_prefetch_map(&map_w);
-            int it = 0;
-            for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+            ring::produce(rg, units, sweep, kblocks,
+                          [&](long long u, int t, int kb, unsigned char* st,
+                              uint64_t* bar) {
                 int lm, nt0;
                 unit_coords<kPeaks>(u, row_units, lm, nt0);
                 const int lane = lm / mtiles, mt = lm % mtiles;
-                for (int t = 0; t < sweep; ++t) {
-                    const int nt = nt0 + t;
-                    for (int kb = 0; kb < kblocks; ++kb, ++it) {
-                        const int s = it % kStages;
-                        const uint32_t ph = (it / kStages) & 1;
-                        hopper::mbar_wait(&empty[s], ph ^ 1);
-                        hopper::mbar_expect_tx(&full[s], kStageA + kStageB);
-                        const int k0 = kb * kBk;
-                        const int part = k0 >= n;           // 0 re, 1 im
-                        const int d0 = k0 - part * n;
 #pragma unroll
-                        for (int j = 0; j < 2; ++j) {
-                            const int dd = d0 + j * kBox;
-                            hopper::tma_load_3d(sa + s * kStageA + j * kBoxA,
-                                                &map_a, &full[s], dd % hop,
-                                                mt * kBm + dd / hop,
-                                                2 * lane + part);
-                        }
-#pragma unroll
-                        for (int c = 0; c < kBn / 64; ++c)
-                            hopper::tma_load_2d(sb + s * kStageB + c * 8192,
-                                                &map_w, &full[s],
-                                                nt * kBn + c * 64, k0);
-                    }
+                for (int j = 0; j < 2; ++j) {
+                    int c0, c1, c2;
+                    walk.box(lane, mt * kBm, kb * kBk + j * kBox, c0, c1, c2);
+                    hopper::tma_load_3d(st + j * kBoxA, &map_a, bar, c0, c1,
+                                        c2);
                 }
-            }
+#pragma unroll
+                for (int c = 0; c < kBn / 64; ++c)
+                    hopper::tma_load_2d(st + kStageA + c * ring::kBoxB,
+                                        &map_w, bar,
+                                        (nt0 + t) * kBn + c * 64, kb * kBk);
+            });
         }
         return;
     }
@@ -361,32 +373,21 @@ direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
         }
         for (int t = 0; t < sweep; ++t) {
             const int nt = nt0 + t;
-            int prev = 0;
-            for (int kb = 0; kb < kblocks; ++kb, ++it) {
-                const int s = it % kStages;
-                hopper::mbar_wait(&full[s], (it / kStages) & 1);
-                hopper::wgmma_fence();
+            ring::consume(rg, it, kblocks, elected,
+                          [&](const unsigned char* st, int kb) {
 #pragma unroll
                 for (int kk = 0; kk < kBk / 16; ++kk) {
                     // A: K-major, 64-byte rows, 8-row groups 512 B apart,
                     // 32 B a k16 slice; two boxes of 32 deep.  B: as P1.
                     const uint64_t da = hopper::desc_sw64(
-                        sa + s * kStageA + (kk >> 1) * kBoxA + wg * 4096 +
-                            (kk & 1) * 32,
+                        st + (kk >> 1) * kBoxA + wg * 4096 + (kk & 1) * 32,
                         16, 512);
                     const uint64_t db = hopper::desc_sw128(
-                        sb + s * kStageB + kk * 2048, 8192, 1024);
+                        st + kStageA + kk * 2048, 8192, 1024);
                     hopper::wgmma_m64n256k16_bf16_bt(d, da, db,
                                                      (kb | kk) != 0);
                 }
-                hopper::wgmma_commit();
-                // The group before this one is done: free its stage.
-                hopper::wgmma_wait<1>();
-                if (kb > 0 && elected) hopper::mbar_arrive(&empty[prev]);
-                prev = s;
-            }
-            hopper::wgmma_wait<0>();
-            if (elected) hopper::mbar_arrive(&empty[prev]);
+            });
 
             if constexpr (!kPeaks) {
 #pragma unroll
@@ -428,8 +429,8 @@ direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
     }
 }
 
-// Each lane's samples as bf16 planes [lanes, 2 (re, im), plane_len],
-// zero past t_len.
+// K4b's pre-pass: each lane's samples as bf16 planes [lanes, 2 (re, im),
+// plane_len], zero past t_len.
 __global__ void chunk_planes_kernel(const float2* __restrict__ iq,
                                     __nv_bfloat16* __restrict__ planes,
                                     int lanes, int t_len,
@@ -445,50 +446,82 @@ __global__ void chunk_planes_kernel(const float2* __restrict__ iq,
     }
 }
 
+// K6's pre-pass: each lane's chunk rows as bf16 [lanes, rows, w], row r
+// = [re(hop r) | im(hop r) | 0], zero past t_len.
+__global__ void chunk_rows_kernel(const float2* __restrict__ iq,
+                                  __nv_bfloat16* __restrict__ rows_out,
+                                  int lanes, int t_len, int rows, int hop,
+                                  int width) {
+    const long long total = (long long)lanes * rows * width;
+    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         e < total; e += (long long)gridDim.x * blockDim.x) {
+        const int c = (int)(e % width);
+        const long long lr = e / width;
+        const long long lane = lr / rows, r = lr % rows;
+        const int part = c >= hop;
+        const long long s = r * hop + c - part * hop;
+        float v = 0.0f;
+        if (c < 2 * hop && s < t_len) {
+            const float2 z = iq[lane * t_len + s];
+            v = part ? z.y : z.x;
+        }
+        rows_out[e] = __float2bfloat16(v);
+    }
+}
+
+// The product over the A map, W [depth, 8K].
+template <bool kPeaks, class Walk>
+int launch_product(const CUtensorMap& map_a, const void* w, const Out& out,
+                   Walk walk, int lanes, int frames, int depth, int k, int m,
+                   float threshold, int sms, cudaStream_t stream) {
+    CUtensorMap map_w;
+    int err = hopper::make_map_bf16(&map_w, w, (uint64_t)depth, 8ULL * k,
+                                    kBk, 64);
+    if (err) return err;
+    const size_t smem = ring::smem_bytes(
+        kStageA + kStageB, kPeaks ? (size_t)kBm * m * sizeof(Cand) : 0);
+    cudaError_t cerr = cudaFuncSetAttribute(
+        direct_product_kernel<kPeaks, Walk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    const long long row_units = (long long)lanes * ((frames + kBm - 1) / kBm);
+    const long long units = kPeaks ? row_units : row_units * (k / kTileBins);
+    const int grid = (int)(units < sms ? units : sms);
+    direct_product_kernel<kPeaks, Walk>
+        <<<grid, ring::kThreads, smem, stream>>>(
+            map_a, map_w, out, walk, lanes, frames, depth, k, m, threshold);
+    return (int)cudaGetLastError();
+}
+
 template <bool kPeaks>
-int launch(const float* iq, const void* w, void* planes, const Out& out,
-           int lanes, int t_len, int frames, int n, int hop, int k, int m,
-           float threshold, cudaStream_t stream) {
+int launch_direct(const float* iq, const void* w, void* planes,
+                  const Out& out, int lanes, int t_len, int frames, int n,
+                  int hop, int k, int m, float threshold,
+                  cudaStream_t stream) {
     if (lanes <= 0 || frames <= 0) return 0;
     // Limits: a 32-deep A box within one plane row, the re / im halves on
-    // a stage boundary, whole 32-bin column tiles, M in registers' reach.
+    // a stage boundary, whole 32-bin column tiles, M in the lists' reach.
     if (hop <= 0 || hop % kBox || n % hop || n % kBk || k % kTileBins ||
         t_len < 0 || (kPeaks && (m < 1 || m > kMaxM)))
         return cudaErrorInvalidValue;
     const long long rows = (long long)frames + n / hop - 1;
     const long long plane_len = rows * hop;
-    int dev = 0, sms = 0;
-    cudaError_t cerr = cudaGetDevice(&dev);
-    if (cerr == cudaSuccess)
-        cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
-    if (cerr != cudaSuccess) return (int)cerr;
-    const long long total = (long long)lanes * plane_len;
-    const long long cblocks = (total + 255) / 256;
-    chunk_planes_kernel<<<(int)(cblocks < 8LL * sms ? cblocks : 8LL * sms),
-                          256, 0, stream>>>(
+    int sms = 0;
+    int err = ring::sm_count(sms);
+    if (err) return err;
+    const int blocks = ring::prepass_blocks((long long)lanes * plane_len, sms);
+    chunk_planes_kernel<<<blocks, 256, 0, stream>>>(
         reinterpret_cast<const float2*>(iq),
         reinterpret_cast<__nv_bfloat16*>(planes), lanes, t_len, plane_len);
-    cerr = cudaGetLastError();
-    if (cerr != cudaSuccess) return (int)cerr;
-
-    CUtensorMap map_a, map_w;
-    int err = hopper::make_map_bf16_planes(&map_a, planes, 2ULL * lanes,
-                                           rows, hop, kBm, kBox);
+    err = (int)cudaGetLastError();
     if (err) return err;
-    err = hopper::make_map_bf16(&map_w, w, 2ULL * n, 8ULL * k, kBk, 64);
+    CUtensorMap map_a;
+    err = hopper::make_map_bf16_planes(&map_a, planes, 2ULL * lanes, rows,
+                                       hop, kBm, kBox);
     if (err) return err;
-    const size_t smem = kSmem + (kPeaks ? (size_t)kBm * m * sizeof(Cand) : 0);
-    cerr = cudaFuncSetAttribute(direct_product_kernel<kPeaks>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-    if (cerr != cudaSuccess) return (int)cerr;
-    const long long row_units = (long long)lanes * ((frames + kBm - 1) / kBm);
-    const long long units = kPeaks ? row_units : row_units * (k / kTileBins);
-    const int grid = (int)(units < sms ? units : sms);
-    direct_product_kernel<kPeaks><<<grid, kThreads, smem, stream>>>(
-        map_a, map_w, out, lanes, frames, n, hop, k, m, threshold);
-    return (int)cudaGetLastError();
+    return launch_product<kPeaks>(map_a, w, out, PlaneWalk{n, hop}, lanes,
+                                  frames, 2 * n, k, m, threshold, sms,
+                                  stream);
 }
 
 }  // namespace
@@ -500,8 +533,8 @@ extern "C" int grl_direct_spectra(const float* iq, const void* w,
                                   int frames, int n, int hop, int k,
                                   void* stream) {
     Out out = {fa, faw, hs, nullptr, nullptr, nullptr, nullptr};
-    return launch<false>(iq, w, planes, out, lanes, t_len, frames, n, hop, k,
-                         1, 0.0f, (cudaStream_t)stream);
+    return launch_direct<false>(iq, w, planes, out, lanes, t_len, frames, n,
+                                hop, k, 1, 0.0f, (cudaStream_t)stream);
 }
 
 extern "C" int grl_direct_peaks(const float* iq, const void* w, void* planes,
@@ -510,6 +543,38 @@ extern "C" int grl_direct_peaks(const float* iq, const void* w, void* planes,
                                 int frames, int n, int hop, int k, int m,
                                 float threshold, void* stream) {
     Out out = {nullptr, nullptr, nullptr, bins, h, h_single, valid};
-    return launch<true>(iq, w, planes, out, lanes, t_len, frames, n, hop, k,
-                        m, threshold, (cudaStream_t)stream);
+    return launch_direct<true>(iq, w, planes, out, lanes, t_len, frames, n,
+                               hop, k, m, threshold, (cudaStream_t)stream);
+}
+
+// K6.  w: bf16 [8 lw, 8K], lw = 2 hop rounded up to 32; rows_scratch:
+// bf16 [lanes, frames + 7, width], width = 2 hop rounded up to 128.
+extern "C" int grl_chunk_spectra(const float* iq, const void* w,
+                                 void* rows_scratch, float* fa, float* faw,
+                                 float* hs, int lanes, int t_len, int frames,
+                                 int hop, int width, int k, void* stream) {
+    if (lanes <= 0 || frames <= 0) return 0;
+    const int lw = (2 * hop + kBox - 1) / kBox * kBox;
+    if (hop <= 0 || width % 8 || width < lw || k % kTileBins || t_len < 0)
+        return cudaErrorInvalidValue;
+    const int rows = frames + kR - 1;
+    const cudaStream_t st = (cudaStream_t)stream;
+    int sms = 0;
+    int err = ring::sm_count(sms);
+    if (err) return err;
+    const int blocks = ring::prepass_blocks((long long)lanes * rows * width,
+                                            sms);
+    chunk_rows_kernel<<<blocks, 256, 0, st>>>(
+        reinterpret_cast<const float2*>(iq),
+        reinterpret_cast<__nv_bfloat16*>(rows_scratch), lanes, t_len, rows,
+        hop, width);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    CUtensorMap map_a;
+    err = hopper::make_map_bf16_planes(&map_a, rows_scratch, lanes, rows,
+                                       width, kBm, kBox);
+    if (err) return err;
+    Out out = {fa, faw, hs, nullptr, nullptr, nullptr, nullptr};
+    return launch_product<false>(map_a, w, out, ChunkWalk{lw}, lanes, frames,
+                                 kR * lw, k, 1, 0.0f, sms, st);
 }

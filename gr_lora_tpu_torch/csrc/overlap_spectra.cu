@@ -43,7 +43,11 @@
 // separately rounded f32 operations of every output (no FMA may fuse them),
 // plus the window's shared-memory loads (one X value a tap and side) and
 // their addresses.  kSlots, kStride and the 16 zero-padded taps are compile-time
-// so that every ring and window load has a constant offset.
+// so that every ring and window load has a constant offset.  A side's
+// columns (band + 2 halo) are padded to kStride = 128 kCols: 384 (kCols 3)
+// up to fft_factor 8, where the halo is 56 bins (73 728 B of shared memory,
+// 3 blocks an SM); 512 (kCols 4) at fft_factor 16, where it is 112 (98 304
+// B, 2 blocks an SM).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,8 +61,6 @@ constexpr int kBand = 256;        // columns e a block owns (one a thread)
 constexpr int kThreads = kBand;
 constexpr int kR = 8;             // PYRAMID_OVERLAP_FACTOR
 constexpr int kSlots = 10;        // ring rows: the 9 in use, 1 in flight
-constexpr int kCols = 3;          // X columns a thread (both sides)
-constexpr int kStride = kCols * kThreads / 2;     // a side's columns, padded
 constexpr int kTaps = 16;         // window taps at most (15 at beta 25)
 constexpr int kTargetBlocks = 2048;   // hop runs: about this many blocks
 static_assert(kBand % 2 == 0, "the band is copied in pairs of bins");
@@ -81,8 +83,13 @@ __device__ __forceinline__ int mod(int a, int m) {
     return r < 0 ? r + m : r;
 }
 
+// A side's columns, padded, for kCols X columns a thread (both sides).
+template <int kCols>
+__host__ __device__ constexpr int stride_of() { return kCols * kThreads / 2; }
+
 // Window tap q at column pointer `col`, both hops of a pair (X rows
 // 2 kStride apart) and both sides (kStride apart): xw += tap * X[-sq].
+template <int kStride>
 __device__ __forceinline__ void window_tap(float2 (&xw)[2][2],
                                            const float2* col, float4 ts,
                                            bool first) {
@@ -97,7 +104,8 @@ __device__ __forceinline__ void window_tap(float2 (&xw)[2][2],
         }
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int kCols>
+__global__ void __launch_bounds__(kThreads, kCols == 3 ? 3 : 2)
 overlap_spectra_kernel(const float2* __restrict__ g,
                        const float2* __restrict__ rho_period,
                        const int* __restrict__ shifts,
@@ -105,6 +113,7 @@ overlap_spectra_kernel(const float2* __restrict__ g,
                        float* __restrict__ fa, float* __restrict__ faw,
                        float* __restrict__ hs, int rows_g, int hops, int f,
                        int k, int s1, int period, int ntaps, int hp, int run) {
+    constexpr int kStride = stride_of<kCols>();
     extern __shared__ __align__(16) unsigned char smem[];
     // A side's columns: band + 2 halo, padded to kStride (a multiple of P,
     // so that a column's rho index is the same on both sides and every 256
@@ -233,8 +242,9 @@ overlap_spectra_kernel(const float2* __restrict__ g,
         float2 xw[2][2];
 #pragma unroll
         for (int q = 0; q < kTaps - 1; ++q)
-            window_tap(xw, col, tap_s[q], q == 0);
-        if (ntaps == kTaps) window_tap(xw, col, tap_s[kTaps - 1], false);
+            window_tap<kStride>(xw, col, tap_s[q], q == 0);
+        if (ntaps == kTaps)
+            window_tap<kStride>(xw, col, tap_s[kTaps - 1], false);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             if (!emit[h]) continue;
@@ -252,10 +262,36 @@ overlap_spectra_kernel(const float2* __restrict__ g,
     hopper::cp_async_wait<0>();
 }
 
+template <int kCols>
+int launch(const float2* g, const float2* rho_period, const int* shifts,
+           const float2* taps, float* fa, float* faw, float* hs, int lanes,
+           int rows_g, int hops, int f, int k, int s1, int period, int ntaps,
+           int hp, cudaStream_t stream) {
+    const int span = f == 2 * k ? k : f;
+    const int bands = (span + kBand - 1) / kBand;
+    const long long per_run = (long long)bands * lanes;
+    const long long runs_want = (kTargetBlocks + per_run - 1) / per_run;
+    const int run = (int)((hops + runs_want - 1) / runs_want);
+    const int runs = (hops + run - 1) / run;
+    const size_t smem =
+        (size_t)(kSlots + 2) * 2 * stride_of<kCols>() * sizeof(float2);
+    cudaError_t err = cudaFuncSetAttribute(
+        overlap_spectra_kernel<kCols>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(bands, runs, lanes);
+    overlap_spectra_kernel<kCols><<<grid, kThreads, smem, stream>>>(
+        g, rho_period, shifts, taps, fa, faw, hs, rows_g, hops, f, k, s1,
+        period, ntaps, hp, run);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // sigma1 = sigma_1 mod F; halo = the largest |window shift|.  The plan's
-// sigma_j must be j sigma1 mod F (the wrapper checks it).
+// sigma_j must be j sigma1 mod F (the wrapper checks it).  Band + 2 halo
+// up to 384 columns takes the 3-column instance, up to 512 the 4-column
+// one.
 extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
                                    const int* shifts, const float* taps,
                                    float* fa, float* faw, float* hs,
@@ -264,27 +300,18 @@ extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
                                    int halo, void* stream) {
     if (lanes <= 0 || hops <= 0) return 0;
     const int hp = halo + (halo & 1);          // even: 16-byte copies
+    const int width = kBand + 2 * hp;
+    const int cols = width <= stride_of<3>() ? 3 : 4;
+    const int stride = cols == 3 ? stride_of<3>() : stride_of<4>();
     if (ntaps < 1 || ntaps > kTaps || halo < 0 || rows_g < hops + kR - 1 ||
         k <= 0 || f % k || f % 2 || period <= 0 || kBand % period ||
         sigma1 % period || (f - k) % period || sigma1 < 0 || sigma1 >= f ||
-        kStride % period || kBand + 2 * hp > kStride)
+        stride % period || width > stride)
         return cudaErrorInvalidValue;
-    const int span = f == 2 * k ? k : f;
-    const int bands = (span + kBand - 1) / kBand;
-    const long long per_run = (long long)bands * lanes;
-    const long long runs_want = (kTargetBlocks + per_run - 1) / per_run;
-    const int run = (int)((hops + runs_want - 1) / runs_want);
-    const int runs = (hops + run - 1) / run;
-    const size_t smem = (size_t)(kSlots + 2) * 2 * kStride * sizeof(float2);
-    cudaError_t err = cudaFuncSetAttribute(
-        overlap_spectra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(bands, runs, lanes);
-    overlap_spectra_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float2*>(g),
-        reinterpret_cast<const float2*>(rho_period), shifts,
-        reinterpret_cast<const float2*>(taps), fa, faw, hs, rows_g, hops, f,
-        k, sigma1, period, ntaps, hp, run);
-    return (int)cudaGetLastError();
+    auto* fn = cols == 3 ? launch<3> : launch<4>;
+    return fn(reinterpret_cast<const float2*>(g),
+              reinterpret_cast<const float2*>(rho_period), shifts,
+              reinterpret_cast<const float2*>(taps), fa, faw, hs, lanes,
+              rows_g, hops, f, k, sigma1, period, ntaps, hp,
+              (cudaStream_t)stream);
 }

@@ -11,8 +11,14 @@
 //
 // Bound on the card: one read of three f32 [R, K] arrays (bytes).  One
 // block per row: every thread scans a strided slice of the row once,
-// keeping its own sorted top-M list in registers, then M block-wide
-// arg-max rounds merge the per-thread lists — no second pass over K.
+// keeping its own sorted list of its best min(M, 16) candidates in
+// registers, then M block-wide arg-max rounds merge the per-thread lists —
+// no second pass over K for M <= 16.  Any M in [1, K] through a second
+// instance (kRefill): a thread whose list runs dry after 16 of its
+// candidates were taken rescans its slice for the best 16 below the last
+// one taken (the order is total: value, then bin), so the rounds see every
+// candidate in order.  The M <= 16 instance has no rescan code, and keeps
+// its registers and occupancy.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -22,7 +28,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxM = 16;
+constexpr int kList = 16;          // candidates a thread holds at once
 
 struct Cand {
     float v;
@@ -43,6 +49,44 @@ __device__ __forceinline__ Cand warp_best(Cand c) {
     return c;
 }
 
+// This thread's best `len` candidates of its slice (bins threadIdx.x +
+// kThreads i) that rank below `after` (kRefill; all of them otherwise),
+// sorted best first.  Returns whether the slice may hold more (the list
+// came back full).
+template <bool kRefill>
+__device__ __forceinline__ bool scan(const float* w, int k, int len,
+                                     float threshold, const Cand& after,
+                                     Cand (&list)[kList]) {
+    const Cand empty = {-INFINITY, 0x7fffffff};
+#pragma unroll
+    for (int s = 0; s < kList; ++s) list[s] = empty;
+    // Ascending bins per thread: an insertion that only displaces on a
+    // strictly better candidate keeps the lower bin first on equal values.
+    for (int c = threadIdx.x; c < k; c += kThreads) {
+        const float x = w[c];
+        const float l = w[c == 0 ? k - 1 : c - 1];
+        const float r = w[c == k - 1 ? 0 : c + 1];
+        Cand cand = {x, c};
+        if (x > threshold && x > l && x > r &&
+            (!kRefill || better(after, cand))) {
+#pragma unroll
+            for (int s = 0; s < kList; ++s) {
+                if (s < len && better(cand, list[s])) {
+                    const Cand t = list[s];
+                    list[s] = cand;
+                    cand = t;
+                }
+            }
+        }
+    }
+    bool full = false;
+#pragma unroll
+    for (int s = 0; s < kList; ++s)    // constant indices: list stays in
+        if (s == len - 1) full = list[s].v != -INFINITY;    // registers
+    return full;
+}
+
+template <bool kRefill>
 __global__ void __launch_bounds__(kThreads)
 peak_topm_kernel(const float* __restrict__ faw, const float* __restrict__ fa,
                  const float* __restrict__ hs, int* __restrict__ bins,
@@ -51,29 +95,12 @@ peak_topm_kernel(const float* __restrict__ faw, const float* __restrict__ fa,
     const long long row = blockIdx.x;
     const float* w = faw + row * k;
     const Cand empty = {-INFINITY, 0x7fffffff};
+    const Cand first = {INFINITY, -1};        // ranks above every candidate
+    const int len = m < kList ? m : kList;
 
-    Cand list[kMaxM];
-#pragma unroll
-    for (int s = 0; s < kMaxM; ++s) list[s] = empty;
-
-    // Ascending bins per thread: an insertion that only displaces on a
-    // strictly better candidate keeps the lower bin first on equal values.
-    for (int c = threadIdx.x; c < k; c += kThreads) {
-        const float x = w[c];
-        const float l = w[c == 0 ? k - 1 : c - 1];
-        const float r = w[c == k - 1 ? 0 : c + 1];
-        if (x > threshold && x > l && x > r) {
-            Cand cand = {x, c};
-#pragma unroll
-            for (int s = 0; s < kMaxM; ++s) {
-                if (s < m && better(cand, list[s])) {
-                    const Cand t = list[s];
-                    list[s] = cand;
-                    cand = t;
-                }
-            }
-        }
-    }
+    Cand list[kList];
+    [[maybe_unused]] bool more =
+        scan<kRefill>(w, k, len, threshold, first, list);
 
     __shared__ Cand warp_top[kWarps];
     __shared__ Cand winner;
@@ -91,10 +118,14 @@ peak_topm_kernel(const float* __restrict__ faw, const float* __restrict__ fa,
         __syncthreads();
         const Cand win = winner;
         if (list[0].b == win.b && win.v != -INFINITY) {
-            // Only the owning thread holds this bin: pop its head.
+            // Only the owning thread holds this bin: pop its head, and
+            // refill a list it has emptied.
 #pragma unroll
-            for (int s = 0; s + 1 < kMaxM; ++s) list[s] = list[s + 1];
-            list[kMaxM - 1] = empty;
+            for (int s = 0; s + 1 < kList; ++s) list[s] = list[s + 1];
+            list[kList - 1] = empty;
+            if constexpr (kRefill)
+                if (list[0].v == -INFINITY && more && slot + 1 < m)
+                    more = scan<true>(w, k, len, threshold, win, list);
         }
         if (threadIdx.x == 0) {
             const long long o = row * m + slot;
@@ -115,8 +146,10 @@ extern "C" int grl_peak_topm(const float* faw, const float* fa,
                              float* h_single, uint8_t* valid, long long rows,
                              int k, int m, float threshold, void* stream) {
     if (rows <= 0) return 0;
-    if (m < 1 || m > kMaxM || k < 3) return cudaErrorInvalidValue;
-    peak_topm_kernel<<<(unsigned)rows, kThreads, 0, (cudaStream_t)stream>>>(
+    if (m < 1 || m > k || k < 3) return cudaErrorInvalidValue;
+    auto* kernel =
+        m <= kList ? peak_topm_kernel<false> : peak_topm_kernel<true>;
+    kernel<<<(unsigned)rows, kThreads, 0, (cudaStream_t)stream>>>(
         faw, fa, hs, bins, h, h_single, valid, k, m, threshold);
     return (int)cudaGetLastError();
 }

@@ -24,9 +24,10 @@
 // run wgmma m64n256k16 (bf16, f32 accumulators in registers; A = x
 // K-major, B = w MN-major through the descriptor's transpose bit), one
 // producer thread keeps TMA loads of 64-deep A and B tiles (128-byte
-// swizzled) in flight through a ring of 4 stages with full / empty
-// mbarriers.  The operands (5.3 MB at the main shape) stay in L2, so
-// reloading a tile for each step is an L2 read.  A unit's first product
+// swizzled) in flight through the 4-stage mbarrier ring of tma_ring.cuh,
+// which the product kernels K3, K4b, K4 and K6 share.  The operands
+// (5.3 MB at the main shape) stay in L2, so reloading a tile for each
+// step is an L2 read.  A unit's first product
 // overwrites its accumulators (scale-d 0) as each TPU step overwrites its
 // scratch, every wgmma is volatile asm so none is removed, and the last
 // step's tiles go to the scratch in device memory.
@@ -49,21 +50,18 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tma_ring.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-// P1 tiles: 128 x 256 outputs a unit, 64-deep stages, 4 of them.
-constexpr int kBm = 128;
+// P1 tiles: 128 x 256 outputs a unit, in the ring's 64-deep stages.
+using ring::kBk;
+using ring::kBm;
 constexpr int kBn = 256;
-constexpr int kBk = 64;
-constexpr int kStages = 4;
-constexpr int kP1Threads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr uint32_t kStageA = kBm * kBk * 2;   // 16 KB: 128 rows x 128 B
-constexpr uint32_t kStageB = kBk * kBn * 2;   // 32 KB: 4 x (64 rows x 128 B)
-constexpr size_t kP1Smem = kStages * (kStageA + kStageB) + 1024 +
-                           2 * kStages * sizeof(uint64_t);
+constexpr uint32_t kStageB = kBn / 64 * ring::kBoxB;  // 32 KB: 4 x 8 KB
 
 constexpr int kTm = 128;           // product rows per block
 constexpr int kTn = 64;            // product columns per block
@@ -149,18 +147,13 @@ __device__ __forceinline__ void store_tile(Acc (&acc)[2][2], float* out,
 }
 
 // P1: the (step, tile) units of blockIdx.x, blockIdx.x + gridDim.x, ...
-__global__ void __launch_bounds__(kP1Threads, 1)
+__global__ void __launch_bounds__(ring::kThreads, 1)
 rate_probe_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w,
                   float* __restrict__ scratch, float* __restrict__ out,
                   int rows, int depth, int width, int steps) {
     extern __shared__ unsigned char smem_raw[];
-    // SWIZZLE_128B tiles must start on a 1024-byte boundary.
-    unsigned char* sa = reinterpret_cast<unsigned char*>(
-        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-    unsigned char* sb = sa + kStages * kStageA;
-    uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
-    uint64_t* empty = full + kStages;
+    const ring::Ring rg = ring::make(smem_raw, kStageA + kStageB);
 
     const int mtiles = 4 * rows / kBm, ntiles = width / kBn;
     const int tiles = mtiles * ntiles;
@@ -168,96 +161,70 @@ rate_probe_kernel(const __grid_constant__ CUtensorMap map_x,
     const int kblocks = depth / kBk;
     const int wg = threadIdx.x / 128;
 
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < kStages; ++s) {
-            hopper::mbar_init(&full[s], 1);      // the producer's expect_tx
-            hopper::mbar_init(&empty[s], 2);     // one arrive a consumer WG
-        }
-        hopper::mbar_fence_init();
-    }
-    __syncthreads();
-
     if (wg == 2) {
         // Producer warpgroup: one thread starts every TMA load.
         hopper::setmaxnreg_dec<40>();
         if (threadIdx.x == 256) {
             hopper::tma_prefetch_map(&map_x);
             hopper::tma_prefetch_map(&map_w);
-            int it = 0;
-            for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+            ring::produce(rg, units, 1, kblocks,
+                          [&](long long u, int, int kb, unsigned char* st,
+                              uint64_t* bar) {
                 const int tile = (int)(u % tiles);
                 const int mt = tile % mtiles, nt = tile / mtiles;
-                for (int kb = 0; kb < kblocks; ++kb, ++it) {
-                    const int s = it % kStages;
-                    const uint32_t ph = (it / kStages) & 1;
-                    hopper::mbar_wait(&empty[s], ph ^ 1);
-                    hopper::mbar_expect_tx(&full[s], kStageA + kStageB);
-                    hopper::tma_load_2d(sa + s * kStageA, &map_x, &full[s],
-                                        kb * kBk, mt * kBm);
+                hopper::tma_load_2d(st, &map_x, bar, kb * kBk, mt * kBm);
 #pragma unroll
-                    for (int c = 0; c < kBn / 64; ++c)
-                        hopper::tma_load_2d(sb + s * kStageB + c * 8192,
-                                            &map_w, &full[s],
-                                            nt * kBn + c * 64, kb * kBk);
-                }
-            }
+                for (int c = 0; c < kBn / 64; ++c)
+                    hopper::tma_load_2d(st + kStageA + c * ring::kBoxB,
+                                        &map_w, bar, nt * kBn + c * 64,
+                                        kb * kBk);
+            });
         }
-    } else {
-        // Consumer warpgroup wg: rows wg * 64 .. + 64 of every unit's tile.
-        hopper::setmaxnreg_inc<232>();
-        const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-        const bool elected = threadIdx.x % 128 == 0;
-        float d[128];
-        int it = 0;
-        for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-            const int tile = (int)(u % tiles);
-            const int mt = tile % mtiles, nt = tile / mtiles;
-            int prev = 0;
-            for (int kb = 0; kb < kblocks; ++kb, ++it) {
-                const int s = it % kStages;
-                hopper::mbar_wait(&full[s], (it / kStages) & 1);
-                hopper::wgmma_fence();
+        return;
+    }
+
+    // Consumer warpgroup wg: rows wg * 64 .. + 64 of every unit's tile.
+    hopper::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const bool elected = threadIdx.x % 128 == 0;
+    float d[128];
+    int it = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const int tile = (int)(u % tiles);
+        const int mt = tile % mtiles, nt = tile / mtiles;
+        ring::consume(rg, it, kblocks, elected,
+                      [&](const unsigned char* st, int kb) {
 #pragma unroll
-                for (int kk = 0; kk < kBk / 16; ++kk) {
-                    // A: K-major, 8-row groups 1024 B apart, 32 B a k16
-                    // slice.  B: MN-major, 64-column atoms 8 KB apart
-                    // (leading), 8-row k groups 1024 B apart, 2 KB a k16.
-                    const uint64_t da = hopper::desc_sw128(
-                        sa + s * kStageA + wg * 8192 + kk * 32, 16, 1024);
-                    const uint64_t db = hopper::desc_sw128(
-                        sb + s * kStageB + kk * 2048, 8192, 1024);
-                    hopper::wgmma_m64n256k16_bf16_bt(d, da, db,
-                                                     (kb | kk) != 0);
-                }
-                hopper::wgmma_commit();
-                // The group before this one is done: free its stage.
-                hopper::wgmma_wait<1>();
-                if (kb > 0 && elected) hopper::mbar_arrive(&empty[prev]);
-                prev = s;
+            for (int kk = 0; kk < kBk / 16; ++kk) {
+                // A: K-major, 8-row groups 1024 B apart, 32 B a k16 slice.
+                // B: MN-major, 64-column atoms 8 KB apart (leading), 8-row
+                // k groups 1024 B apart, 2 KB a k16.
+                const uint64_t da =
+                    hopper::desc_sw128(st + wg * 8192 + kk * 32, 16, 1024);
+                const uint64_t db =
+                    hopper::desc_sw128(st + kStageA + kk * 2048, 8192, 1024);
+                hopper::wgmma_m64n256k16_bf16_bt(d, da, db, (kb | kk) != 0);
             }
-            hopper::wgmma_wait<0>();
-            if (elected) hopper::mbar_arrive(&empty[prev]);
-            if (u / tiles != steps - 1) continue;
-            // The last step's tile: row_t of the stacked [4 rows] product
-            // is row r of product (slab) j.
-            const int row_t = mt * kBm + wg * 64 + warp * 16 + lane / 4;
-            const int j = row_t / rows, r = row_t % rows;
-            const long long ld = 4LL * width;
-            float* o = scratch + (long long)r * ld + (long long)j * width +
-                       nt * kBn + 2 * (lane % 4);
+        });
+        if (u / tiles != steps - 1) continue;
+        // The last step's tile: row_t of the stacked [4 rows] product is
+        // row r of product (slab) j.
+        const int row_t = mt * kBm + wg * 64 + warp * 16 + lane / 4;
+        const int j = row_t / rows, r = row_t % rows;
+        const long long ld = 4LL * width;
+        float* o = scratch + (long long)r * ld + (long long)j * width +
+                   nt * kBn + 2 * (lane % 4);
 #pragma unroll
-            for (int jn = 0; jn < kBn / 8; ++jn)
+        for (int jn = 0; jn < kBn / 8; ++jn)
 #pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    *reinterpret_cast<float2*>(o + i * 8 * ld + 8 * jn) =
-                        make_float2(d[4 * jn + 2 * i], d[4 * jn + 2 * i + 1]);
-            // Two threads each add one term to the zeroed output; a sum of
-            // two terms onto 0 is the same in either order.
-            if (row_t == 0 && nt == 0 && lane % 4 == 0) atomicAdd(out, d[0]);
-            if (row_t + 8 == 4 * rows - 1 && nt == ntiles - 1 &&
-                lane % 4 == 3)
-                atomicAdd(out, d[127]);
-        }
+            for (int i = 0; i < 2; ++i)
+                *reinterpret_cast<float2*>(o + i * 8 * ld + 8 * jn) =
+                    make_float2(d[4 * jn + 2 * i], d[4 * jn + 2 * i + 1]);
+        // Two threads each add one term to the zeroed output; a sum of two
+        // terms onto 0 is the same in either order.
+        if (row_t == 0 && nt == 0 && lane % 4 == 0) atomicAdd(out, d[0]);
+        if (row_t + 8 == 4 * rows - 1 && nt == ntiles - 1 && lane % 4 == 3)
+            atomicAdd(out, d[127]);
     }
 }
 
@@ -366,20 +333,18 @@ extern "C" int grl_rate_probe(const void* x, const void* w, float* scratch,
     if (err) return err;
     err = hopper::make_map_bf16(&map_w, w, depth, width, kBk, 64);
     if (err) return err;
-    cudaError_t cerr = cudaFuncSetAttribute(
+    const size_t smem = ring::smem_bytes(kStageA + kStageB);
+    err = (int)cudaFuncSetAttribute(
         rate_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kP1Smem);
-    if (cerr != cudaSuccess) return (int)cerr;
-    int dev = 0, sms = 0;
-    cerr = cudaGetDevice(&dev);
-    if (cerr == cudaSuccess)
-        cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
-    if (cerr != cudaSuccess) return (int)cerr;
+        (int)smem);
+    if (err) return err;
+    int sms = 0;
+    err = ring::sm_count(sms);
+    if (err) return err;
     const long long units =
         (long long)(4 * rows / kBm) * (width / kBn) * steps;
     const int grid = (int)(units < sms ? units : sms);
-    rate_probe_kernel<<<grid, kP1Threads, kP1Smem, (cudaStream_t)stream>>>(
+    rate_probe_kernel<<<grid, ring::kThreads, smem, (cudaStream_t)stream>>>(
         map_x, map_w, scratch, out, rows, depth, width, steps);
     return (int)cudaGetLastError();
 }

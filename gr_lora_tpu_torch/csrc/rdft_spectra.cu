@@ -1,9 +1,9 @@
 // rDFT pyramid spectra: the fa / faw / hs folds of every overlapped hop
-// frame, from the raw [T, 2] IQ of each lane.
+// frame, from the raw [T, 2] IQ of each lane, on wgmma + TMA.
 //
 // Replaces gr_lora_tpu/ops/pallas_rdft.py `make_rdft_spectra` / `_kernel`
 // (K3, whole), and is the front end of `make_rdft_peaks` / `_peaks_kernel`
-// (K1: these dots and the recombination; its peak search is
+// (K1: these products and the recombination; its peak search is
 // csrc/peak_topm.cu).  Per frame f (samples iq[f*hop .. f*hop + n)):
 //
 //   u      = iq * downchirp          (f32), and u * kaiser     (f32)
@@ -12,187 +12,341 @@
 //   fa[c]  = |X(c)| + |X(c-K)|,  hs = max of the two,  faw likewise windowed
 //
 // with |X(c-K)| = |X(-(K-c))| read at column K-c of the SAME positive-band
-// product.  Numeric class of the TPU kernel: each dot operand is rounded
-// once to bf16 and the products accumulate in f32 (tensor-core WMMA
-// m16n16k16 with bf16 fragments).  The TPU kernel's lane-reversal matmul
-// and hop-row relayout do not exist here: column K-c is indexed directly,
-// and each block reads its frames straight from the iq at offset f*hop.
+// product.  Numeric class of the TPU kernel: each product operand is
+// rounded once to bf16 after the dechirp (and window), the products
+// accumulate in f32; the recombination, magnitudes and folds round each
+// operation on its own, as the plain version does.  The TPU kernel's
+// lane-reversal matmul does not exist here: column K-c is a column of W.
 //
-// Bound on the card: tensor-core operations (8*n*(K+1) MACs a frame);
-// iq and W stream from L2.  Design: a block owns 32 frames x one PAIR of
-// 32-column tiles, S1 = [b0, b0+32) and its mirror S2 = {K-b0-j}; from
-// the two it writes bins b0+j (<= K/2) AND bins K-b0-j (> K/2), so every
-// column of W is multiplied once per frame tile (one extra pair tile
-// covers the middle bin K/2).  The 4 x 128 product tile never leaves the
-// SM: it is staged in shared memory and folded there.
+// Bound on the card: tensor-core operations (8 n (K+1) MACs a frame; 0.58
+// TFLOP at SF8 x ff 8 on 16 x 2048 frames), beside 12 K bytes of output a
+// frame.
+//
+// Design.  The operand A depends on the depth within the frame (the
+// dechirp), so it is no box of the samples.  A pre-pass (rdft_frames_
+// kernel) writes it once in bf16 in the row order the fold needs:
+// [lanes, tiles, 2 (plain, windowed), 128 rows, npad] (npad = n rounded up
+// to 64, zero beyond n), tile t holding frames 64 t .. 64 t + 63, row
+// 16 w + 8 i + r the component i (0: ur, 1: ui) of frame 64 t + 8 w + r.
+// W is re-laid once (ops/rdft_spectra.tile_weights) in tiles of 32-bin
+// pairs, 128 columns each: [cos S1 | -sin S1 | cos S2 | -sin S2], S1 =
+// bins b0 .. b0 + 31 and S2 their mirrors K - b0 - j in mirrored order, so
+// bin b0 + j and its partner column K - b0 - j land in the same thread;
+// tiles b0 = 0, 32, .., K/2 (the last one for bin K/2 alone).  The product
+// is the ring of tma_ring.cuh: one producer thread keeps TMA loads of
+// 64-deep stages (two A boxes of each of the plain and windowed tiles, two
+// 64-column B boxes) in flight through 4 buffers; the two consumer
+// warpgroups run wgmma m64n128k16 on the plain rows and on the windowed
+// rows over the same B stage, two accumulators of 64 registers.  wgmma's
+// accumulator layout then gives each thread rows i and i + 8 (ur and ui of
+// one frame) at columns 8 j + 2 (lane % 4) + c: all sixteen values a bin
+// pair needs, so the recombination and folds are taken in registers and
+// write bins b0 + j and K - b0 - j, both as aligned float2 pairs (the
+// mirror side's pairs formed by a shuffle within the quad of lanes that
+// holds a frame; stored one by one, the mirror side cost the kernel a
+// fifth of its time).  A persistent grid walks (lane, frame tile, pair
+// tile) units, frame tile outermost, so the blocks in flight share a few A
+// tiles and all of W in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
-constexpr int kFt = 32;            // frames per block
-constexpr int kBt = 32;            // columns per tile of the pair
-constexpr int kRows = 4 * kFt;     // A rows: [ur | ui | ur*win | ui*win]
-constexpr int kCols = 4 * kBt;     // B cols: [cos S1 | sin S1 | cos S2 | sin S2]
-constexpr int kKc = 32;            // samples per k step
-constexpr int kThreads = 256;      // 8 warps: 4 (component) x 2 (column half)
-constexpr int kLda = kKc + 8;      // bf16, multiple of 8
-constexpr int kLdb = kCols + 8;    // bf16, multiple of 8
-constexpr int kLdc = kCols + 4;    // f32, multiple of 4
-constexpr size_t kSmemAB =
-    (size_t)kRows * kLda * 2 + (size_t)kKc * kLdb * 2;
-constexpr size_t kSmemC = (size_t)kRows * kLdc * 4;
-constexpr size_t kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
+using ring::kBk;
+using ring::kBox;
+using ring::kBoxA;
+constexpr int kPair = 32;                    // bins of S1 (and S2) a tile
+constexpr int kBn = 4 * kPair;               // 128 W columns a tile
+constexpr int kFrames = ring::kBm / 2;       // 64 frames a tile (ur, ui)
+constexpr uint32_t kStageA = 2 * kBoxA;      // 16 KB: plain or windowed
+constexpr uint32_t kStageB = kBn / 64 * ring::kBoxB;     // 16 KB
+constexpr uint32_t kStage = 2 * kStageA + kStageB;       // 48 KB
 
-__device__ __forceinline__ void mags(const float* c, int fr, int col,
-                                     int comp0, float& pos, float& neg) {
-    // (R, I) of component pair comp0 (re part), comp0 + 1 (im part).
-    const float* r = c + (comp0 * kFt + fr) * kLdc;
-    const float* i = c + ((comp0 + 1) * kFt + fr) * kLdc;
-    const float rre = r[col], rim = r[col + kBt];
-    const float ire = i[col], iim = i[col + kBt];
-    const float xre = rre - iim, xim = rim + ire;      // X(c)
-    const float gre = rre + iim, gim = ire - rim;      // X(-c)
-    pos = sqrtf(xre * xre + xim * xim);
-    neg = sqrtf(gre * gre + gim * gim);
+// Register of the value at column 32 g + 8 t + 2 (lane % 4) + c (g: cos
+// S1, -sin S1, cos S2, -sin S2), row i (0: ur, 1: ui): d[4 j + 2 i + c],
+// j = 4 g + t.
+__host__ __device__ constexpr int reg(int g, int t, int i, int c) {
+    return 4 * (4 * g + t) + 2 * i + c;
 }
 
-__global__ void __launch_bounds__(kThreads)
-rdft_spectra_kernel(const float2* __restrict__ iq,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ consts, float* __restrict__ fa,
-                    float* __restrict__ faw, float* __restrict__ hs, int t_len,
-                    int frames, int n, int hop, int k, int kp) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* bs = as + kRows * kLda;
-    float* cs = reinterpret_cast<float*>(smem);        // after the k loop
+__device__ __forceinline__ float cabs_rn(float re, float im) {
+    return sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+}
 
-    const int f0 = blockIdx.x * kFt;
-    const int b0 = blockIdx.y * kBt;
-    const long long lane = blockIdx.z;
-    const float2* x = iq + lane * (long long)t_len;
-    const float* dr = consts;
-    const float* di = consts + n;
-    const float* win = consts + 2 * n;
-    const int warp = threadIdx.x >> 5;
-    const int wr = warp >> 1;          // component (A row group of 32)
-    const int wc = warp & 1;           // column half (64 of 128)
+// |X(b)| and |X(-b)| of the column b that this thread holds at (t, c) of
+// S1 (g0 = 0) or S2 (g0 = 2).
+__device__ __forceinline__ void mags(const float (&d)[64], int g0, int t,
+                                     int c, float& pos, float& neg) {
+    const float rre = d[reg(g0, t, 0, c)], rim = d[reg(g0 + 1, t, 0, c)];
+    const float ire = d[reg(g0, t, 1, c)], iim = d[reg(g0 + 1, t, 1, c)];
+    pos = cabs_rn(__fsub_rn(rre, iim), __fadd_rn(rim, ire));
+    neg = cabs_rn(__fadd_rn(rre, iim), __fsub_rn(ire, rim));
+}
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+// The bf16 A tiles [lanes, tiles, 2, 128, npad]; a thread writes two
+// depths s, s + 1 of one frame's four rows.
+__global__ void rdft_frames_kernel(const float2* __restrict__ iq,
+                                   const float* __restrict__ consts,
+                                   __nv_bfloat162* __restrict__ a, int lanes,
+                                   int t_len, int frames, int n, int npad,
+                                   int hop, int ftiles) {
+    const int half = npad / 2;
+    const long long total = (long long)lanes * ftiles * kFrames * half;
+    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         e < total; e += (long long)gridDim.x * blockDim.x) {
+        const int sp = (int)(e % half);
+        const long long rest = e / half;
+        const int fl = (int)(rest % kFrames);
+        const long long lm = rest / kFrames;         // lane * ftiles + tile
+        const long long lane = lm / ftiles;
+        const int f = (int)(lm % ftiles) * kFrames + fl;
+        float v[4][2];                               // ur, ui, ur w, ui w
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    for (int k0 = 0; k0 < n; k0 += kKc) {
-        // A: dechirp (and window) in f32, one bf16 rounding per operand.
-        for (int e = threadIdx.x; e < kFt * kKc; e += kThreads) {
-            const int fr = e / kKc, s = e % kKc;
-            const int f = f0 + fr;
-            const long long pos = (long long)f * hop + k0 + s;
-            float xr = 0.0f, xi = 0.0f;
-            if (f < frames && pos < t_len) {
-                const float2 v = x[pos];
-                xr = v.x;
-                xi = v.y;
+        for (int h = 0; h < 2; ++h) {
+            const int s = 2 * sp + h;
+            float xr = 0.0f, xi = 0.0f, dr = 0.0f, di = 0.0f, wn = 0.0f;
+            if (s < n) {
+                dr = consts[s];
+                di = consts[n + s];
+                wn = consts[2 * n + s];
+                const long long pos = (long long)f * hop + s;
+                if (f < frames && pos < t_len) {
+                    const float2 x = iq[lane * t_len + pos];
+                    xr = x.x;
+                    xi = x.y;
+                }
             }
-            const float c_r = dr[k0 + s], c_i = di[k0 + s], wn = win[k0 + s];
-            const float ur = xr * c_r - xi * c_i;
-            const float ui = xr * c_i + xi * c_r;
-            as[(0 * kFt + fr) * kLda + s] = __float2bfloat16(ur);
-            as[(1 * kFt + fr) * kLda + s] = __float2bfloat16(ui);
-            as[(2 * kFt + fr) * kLda + s] = __float2bfloat16(ur * wn);
-            as[(3 * kFt + fr) * kLda + s] = __float2bfloat16(ui * wn);
+            const float ur = __fsub_rn(__fmul_rn(xr, dr), __fmul_rn(xi, di));
+            const float ui = __fadd_rn(__fmul_rn(xr, di), __fmul_rn(xi, dr));
+            v[0][h] = ur;
+            v[1][h] = ui;
+            v[2][h] = __fmul_rn(ur, wn);
+            v[3][h] = __fmul_rn(ui, wn);
         }
-        // B: the pair's columns of W, S2 in mirrored order.
-        for (int e = threadIdx.x; e < kKc * kCols; e += kThreads) {
-            const int kr = e / kCols, c = e % kCols;
-            const int grp = c / kBt, j = c % kBt;
-            int col = grp < 2 ? b0 + j : k - b0 - j;
-            if (grp & 1) col += kp;
-            bs[kr * kLdb + c] = w[(long long)(k0 + kr) * (2 * kp) + col];
+        const int row = 16 * (fl / 8) + fl % 8;
+        __nv_bfloat162* tile = a + lm * 2 * ring::kBm * half;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            // c = 2 p + i: product p (plain, windowed), component i.
+            const long long o =
+                ((long long)(c >> 1) * ring::kBm + row + 8 * (c & 1)) * half +
+                sp;
+            tile[o] = __floats2bfloat162_rn(v[c][0], v[c][1]);
         }
-        __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(ring::kThreads, 1)
+rdft_product_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_w,
+                    float* __restrict__ fa, float* __restrict__ faw,
+                    float* __restrict__ hs, int lanes, int frames, int k,
+                    int kblocks) {
+    extern __shared__ unsigned char smem_raw[];
+    const ring::Ring rg = ring::make(smem_raw, kStage);
+
+    const int ftiles = (frames + kFrames - 1) / kFrames;
+    const int ntiles = k / (2 * kPair) + 1;
+    const long long units = (long long)lanes * ftiles * ntiles;
+    const int wg = threadIdx.x / 128;
+
+    if (wg == 2) {
+        // Producer warpgroup: one thread starts every TMA load.
+        hopper::setmaxnreg_dec<40>();
+        if (threadIdx.x == 256) {
+            hopper::tma_prefetch_map(&map_a);
+            hopper::tma_prefetch_map(&map_w);
+            ring::produce(rg, units, 1, kblocks,
+                          [&](long long u, int, int kb, unsigned char* st,
+                              uint64_t* bar) {
+                const long long lm = u / ntiles;
+                const int nt = (int)(u % ntiles);
 #pragma unroll
-        for (int kk = 0; kk < kKc; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> af[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> bf[4];
+                for (int p = 0; p < 2; ++p)
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(af[i], as + (wr * 32 + i * 16) * kLda + kk,
-                                       kLda);
+                    for (int j = 0; j < 2; ++j)
+                        hopper::tma_load_3d(st + p * kStageA + j * kBoxA,
+                                            &map_a, bar, kb * kBk + j * kBox,
+                                            0, (int)(2 * lm + p));
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::load_matrix_sync(bf[j], bs + kk * kLdb + wc * 64 + j * 16,
-                                       kLdb);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+                for (int c = 0; c < kBn / 64; ++c)
+                    hopper::tma_load_2d(st + 2 * kStageA + c * ring::kBoxB,
+                                        &map_w, bar, nt * kBn + c * 64,
+                                        kb * kBk);
+            });
         }
-        __syncthreads();
+        return;
     }
 
+    // Consumer warpgroup wg: rows wg * 64 .. + 64 (frames wg * 32 .. + 32)
+    // of every tile.
+    hopper::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x % 128) / 32, ln = threadIdx.x % 32;
+    const int q = ln & 3;
+    const bool elected = threadIdx.x % 128 == 0;
+    const int fr = wg * 32 + warp * 8 + ln / 4;     // this thread's frame
+    float d0[64], d1[64];                           // plain, windowed
+    int it = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const long long lm = u / ntiles;
+        const int nt = (int)(u % ntiles);
+        ring::consume(rg, it, kblocks, elected,
+                      [&](const unsigned char* st, int kb) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * kLdc + wc * 64 + j * 16,
-                                    acc[i][j], kLdc, wmma::mem_row_major);
-    __syncthreads();
+            for (int kk = 0; kk < kBk / 16; ++kk) {
+                // A: K-major, 64-byte rows, 8-row groups 512 B apart, 32 B
+                // a k16 slice; two boxes of 32 deep.  B: as P1, 128 wide.
+                const uint32_t off =
+                    (kk >> 1) * kBoxA + wg * 4096 + (kk & 1) * 32;
+                const uint64_t db = hopper::desc_sw128(
+                    st + 2 * kStageA + kk * 2048, 8192, 1024);
+                hopper::wgmma_m64n128k16_bf16_bt(
+                    d0, hopper::desc_sw64(st + off, 16, 512), db,
+                    (kb | kk) != 0);
+                hopper::wgmma_m64n128k16_bf16_bt(
+                    d1, hopper::desc_sw64(st + kStageA + off, 16, 512), db,
+                    (kb | kk) != 0);
+            }
+        });
 
-    const int half = k / 2;
-    for (int e = threadIdx.x; e < kFt * kBt; e += kThreads) {
-        const int fr = e / kBt, j = e % kBt;
-        const int f = f0 + fr;
-        if (f >= frames) continue;
-        float p1u, q1u, p2u, q2u, p1w, q1w, p2w, q2w;
-        mags(cs, fr, j, 0, p1u, q1u);              // S1, plain
-        mags(cs, fr, 2 * kBt + j, 0, p2u, q2u);    // S2, plain
-        mags(cs, fr, j, 2, p1w, q1w);              // S1, windowed
-        mags(cs, fr, 2 * kBt + j, 2, p2w, q2w);    // S2, windowed
-        const long long o = (lane * frames + f) * (long long)k;
-        const int c1 = b0 + j;                     // primary bin from S1
-        if (c1 <= half) {
-            fa[o + c1] = p1u + q2u;
-            hs[o + c1] = fmaxf(p1u, q2u);
-            faw[o + c1] = p1w + q2w;
+        // Every lane stays to the end (the shuffles below take the whole
+        // warp); only the frames past the end store nothing.
+        const int f = (int)(lm % ftiles) * kFrames + fr;
+        const bool live = f < frames;
+        const long long o = ((lm / ftiles) * frames + f) * (long long)k;
+        const int b0 = nt * kPair;
+        if (nt == ntiles - 1) {
+            // The last pair tile serves bin K/2 alone (lane q = 0, t = c = 0).
+            if (q == 0 && live) {
+                float p1u, n1u, p2u, n2u, p1w, n1w, p2w, n2w;
+                mags(d0, 0, 0, 0, p1u, n1u);
+                mags(d0, 2, 0, 0, p2u, n2u);
+                mags(d1, 0, 0, 0, p1w, n1w);
+                mags(d1, 2, 0, 0, p2w, n2w);
+                fa[o + b0] = __fadd_rn(p1u, n2u);
+                faw[o + b0] = __fadd_rn(p1w, n2w);
+                hs[o + b0] = fmaxf(p1u, n2u);
+            }
+            continue;
         }
-        const int c2 = k - b0 - j;                 // primary bin from S2
-        if (c2 > half && c2 < k) {
-            fa[o + c2] = p2u + q1u;
-            hs[o + c2] = fmaxf(p2u, q1u);
-            faw[o + c2] = p2w + q1w;
+        // The mirror bins K - b0 - j of this thread: e_t - c, e_t = K - b0
+        // - 8 t - 2 q (fa, faw, hs).
+        float ma[4][2], mw[4][2], mh[4][2];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            float a1[2], w1[2], h1[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                float p1u, n1u, p2u, n2u, p1w, n1w, p2w, n2w;
+                mags(d0, 0, t, c, p1u, n1u);
+                mags(d0, 2, t, c, p2u, n2u);
+                mags(d1, 0, t, c, p1w, n1w);
+                mags(d1, 2, t, c, p2w, n2w);
+                // Bin b0 + j: |X(b0 + j)| and |X(b0 + j - K)| (S2's
+                // conjugate side); bin K - b0 - j the other way round.
+                a1[c] = __fadd_rn(p1u, n2u);
+                h1[c] = fmaxf(p1u, n2u);
+                w1[c] = __fadd_rn(p1w, n2w);
+                ma[t][c] = __fadd_rn(p2u, n1u);
+                mh[t][c] = fmaxf(p2u, n1u);
+                mw[t][c] = __fadd_rn(p2w, n1w);
+            }
+            if (!live) continue;
+            const long long o1 = o + b0 + 8 * t + 2 * q;
+            *reinterpret_cast<float2*>(fa + o1) = make_float2(a1[0], a1[1]);
+            *reinterpret_cast<float2*>(faw + o1) = make_float2(w1[0], w1[1]);
+            *reinterpret_cast<float2*>(hs + o1) = make_float2(h1[0], h1[1]);
+        }
+        // Mirror side, as aligned pairs: lane q writes bins (e_t - 2,
+        // e_t - 1), its own c = 1 value beside the c = 0 value of bin
+        // e_t - 2, which lane q + 1 holds (lane 0 at t + 1 for q = 3).  At
+        // the tile's edges bin K - b0 - 31 (q = 3, t = 3; its pair partner
+        // is the next tile's) and bin K - b0 (q = 0, t = 0; column K for
+        // b0 = 0, else the previous tile's pair) go alone.
+        const int src = q < 3 ? ln + 1 : ln - 3;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const int tn = t < 3 ? t + 1 : 3;
+            const float na = __shfl_sync(0xffffffffu, ma[t][0], src);
+            const float nw = __shfl_sync(0xffffffffu, mw[t][0], src);
+            const float nh = __shfl_sync(0xffffffffu, mh[t][0], src);
+            const float ta = __shfl_sync(0xffffffffu, ma[tn][0], src);
+            const float tw = __shfl_sync(0xffffffffu, mw[tn][0], src);
+            const float th = __shfl_sync(0xffffffffu, mh[tn][0], src);
+            const long long e = o + k - b0 - 8 * t - 2 * q;
+            if (!live) continue;
+            if (q == 3 && t == 3) {
+                fa[e - 1] = ma[t][1];
+                faw[e - 1] = mw[t][1];
+                hs[e - 1] = mh[t][1];
+            } else {
+                const bool up = q == 3;
+                *reinterpret_cast<float2*>(fa + e - 2) =
+                    make_float2(up ? ta : na, ma[t][1]);
+                *reinterpret_cast<float2*>(faw + e - 2) =
+                    make_float2(up ? tw : nw, mw[t][1]);
+                *reinterpret_cast<float2*>(hs + e - 2) =
+                    make_float2(up ? th : nh, mh[t][1]);
+            }
+        }
+        if (live && q == 0 && b0 > 0) {
+            fa[o + k - b0] = ma[0][0];
+            faw[o + k - b0] = mw[0][0];
+            hs[o + k - b0] = mh[0][0];
         }
     }
 }
 
 }  // namespace
 
+// w: the re-laid W, bf16 [npad, (K / 64 + 1) 128]; a_scratch: bf16
+// [lanes, ceil(frames / 64), 2, 128, npad], npad = n rounded up to 64.
 extern "C" int grl_rdft_spectra(const float* iq, const void* w,
-                                const float* consts, float* fa, float* faw,
-                                float* hs, int lanes, int t_len, int frames,
-                                int n, int hop, int k, int kp, void* stream) {
+                                const float* consts, void* a_scratch,
+                                float* fa, float* faw, float* hs, int lanes,
+                                int t_len, int frames, int n, int hop, int k,
+                                void* stream) {
     if (lanes <= 0 || frames <= 0) return 0;
-    if (n % kKc || k % (2 * kBt) || kp < k + 1)
+    if (n <= 0 || n % kBox || hop <= 0 || k <= 0 || k % (2 * kPair) ||
+        t_len < 0)
         return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        rdft_spectra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((frames + kFt - 1) / kFt, k / (2 * kBt) + 1, lanes);
-    rdft_spectra_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float2*>(iq),
-        reinterpret_cast<const __nv_bfloat16*>(w), consts, fa, faw, hs, t_len,
-        frames, n, hop, k, kp);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int npad = (n + kBk - 1) / kBk * kBk;
+    const int ftiles = (frames + kFrames - 1) / kFrames;
+    const int ntiles = k / (2 * kPair) + 1;
+    int sms = 0;
+    int err = ring::sm_count(sms);
+    if (err) return err;
+    const long long pairs = (long long)lanes * ftiles * kFrames * (npad / 2);
+    rdft_frames_kernel<<<ring::prepass_blocks(pairs, sms), 256, 0, st>>>(
+        reinterpret_cast<const float2*>(iq), consts,
+        reinterpret_cast<__nv_bfloat162*>(a_scratch), lanes, t_len, frames,
+        n, npad, hop, ftiles);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+
+    CUtensorMap map_a, map_w;
+    err = hopper::make_map_bf16_planes(
+        &map_a, a_scratch, 2ULL * lanes * ftiles, ring::kBm, npad, ring::kBm,
+        kBox);
+    if (err) return err;
+    err = hopper::make_map_bf16(&map_w, w, npad, (uint64_t)ntiles * kBn, kBk,
+                                64);
+    if (err) return err;
+    const size_t smem = ring::smem_bytes(kStage);
+    err = (int)cudaFuncSetAttribute(
+        rdft_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+    const long long units = (long long)lanes * ftiles * ntiles;
+    const int grid = (int)(units < sms ? units : sms);
+    rdft_product_kernel<<<grid, ring::kThreads, smem, st>>>(
+        map_a, map_w, fa, faw, hs, lanes, frames, k, npad / kBk);
     return (int)cudaGetLastError();
 }

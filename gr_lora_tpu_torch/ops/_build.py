@@ -43,12 +43,12 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signature of each kernel entry point (all return int).
 SIGNATURES = {
-    "grl_rdft_spectra": [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "grl_rdft_spectra": [_P] * 7 + [_I] * 6 + [_P],
     "grl_overlap_spectra": [_P] * 7 + [_I] * 9 + [_P],
     "grl_direct_spectra": [_P] * 6 + [_I] * 6 + [_P],
     "grl_direct_peaks": [_P] * 7 + [_I] * 7 + [_F, _P],
     "grl_peak_topm": [_P] * 7 + [_LL, _I, _I, _F, _P],
-    "grl_chunk_spectra": [_P] * 5 + [_I] * 5 + [_P],
+    "grl_chunk_spectra": [_P] * 6 + [_I] * 6 + [_P],
     "grl_rate_probe": [_P] * 4 + [_I] * 4 + [_P],
     "grl_overlap_probe": [_P] * 6 + [_I] * 7 + [_P],
 }

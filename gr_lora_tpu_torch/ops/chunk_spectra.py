@@ -11,12 +11,23 @@ four complex components, {unwindowed, Kaiser} x {bins [0, K), bins
 faw = m2 + m3.  This is K4b's function (ops/direct.py) from another input
 layout; the two agree up to the f32 summation order.
 
-On a CUDA tensor :class:`ChunkSpectra` launches ``csrc/chunk_spectra.cu``,
-which stages the chunk rows of each frame tile once in shared memory and
-reads every frame from them in place (no frame matrix).  On a CPU tensor it
-runs :meth:`ChunkSpectra.plain`, the same numeric class in plain PyTorch.
-The JAX kernel's frame-tile padding of the frame count is dropped: the
-chunk rows cover exactly ``num_frames + R - 1`` hops.
+On a CUDA tensor :class:`ChunkSpectra` launches ``grl_chunk_spectra`` in
+``csrc/direct_spectra.cu``, K4b's ``wgmma`` + TMA product with another A
+walk: a pre-pass writes the chunk rows once in bf16 [rows, w], and frame
+f at depth r lw + c (lw = 2 hop rounded up to 32) is chunk row f + r,
+column c, so each A tile of 128 frames x 32 depths is one TMA box and the
+boxes of the pad columns [lw, w) are never loaded (their weight rows are
+zero).  Its weights are :func:`kernel_weights`, the component weights'
+bf16 values re-laid once (rows r lw + c, columns in K4b's 16-bin
+interleave): a permutation, so they equal ``direct_weights`` row for row.
+Any hop works.  On a CPU tensor it runs :meth:`ChunkSpectra.plain`, the
+same numeric class in plain PyTorch.  The JAX kernel's frame-tile padding
+of the frame count is dropped: the chunk rows cover exactly
+``num_frames + R - 1`` hops.
+
+:func:`tile_frames` is the kernel's A walk in plain torch, for the tests
+(its pre-pass writes :func:`row_chunks` in bf16; ``ops/direct.
+tile_spectra`` models its product and folds).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .chirp import chirp_tables
 from .dechirp import kaiser_window
+from .direct import BOX, FRAME_TILE, TILE_BINS
 from .rdft_spectra import bf16_matmul
 
 _R = PYRAMID_OVERLAP_FACTOR
@@ -39,6 +51,12 @@ _R = PYRAMID_OVERLAP_FACTOR
 def row_width(hop: int) -> int:
     """Chunk row width: 2 hop rounded up to a multiple of 128."""
     return -(-2 * hop // 128) * 128
+
+
+def live_width(hop: int) -> int:
+    """Columns of a chunk row the kernel reads: 2 hop rounded up to a
+    multiple of its 32-deep box."""
+    return -(-2 * hop // BOX) * BOX
 
 
 @lru_cache(maxsize=4)
@@ -78,6 +96,22 @@ def component_weights(sf: int, p: int, fft_factor: int,
     return torch.from_numpy(out).to(torch.bfloat16)
 
 
+@lru_cache(maxsize=4)
+def kernel_weights(sf: int, p: int, fft_factor: int,
+                   beta: float) -> torch.Tensor:
+    """bf16 [R lw, 8K]: :func:`component_weights` re-laid for the kernel.
+    Row r lw + c is chunk-layout row r w + c (rows c >= lw, all zero,
+    dropped); column 128 g + 32 c + 16 j + b of 16-bin tile g is bin
+    16 g + b of matrix 2c + j, K4b's interleave (ops/direct.py)."""
+    n = p << sf
+    hop = n // _R
+    w, lw = row_width(hop), live_width(hop)
+    k = fft_factor << sf
+    cw = component_weights(sf, p, fft_factor, beta)        # [8, R w, K]
+    x = cw.reshape(4, 2, _R, w, k // TILE_BINS, TILE_BINS)[:, :, :, :lw]
+    return x.permute(2, 3, 4, 0, 1, 5).reshape(_R * lw, 8 * k).contiguous()
+
+
 def row_chunks(iq: torch.Tensor, hop: int, width: int,
                num_frames: int) -> torch.Tensor:
     """iq float32 [..., T, 2] -> chunk rows float32 [..., num_frames + R - 1,
@@ -96,7 +130,8 @@ def row_chunks(iq: torch.Tensor, hop: int, width: int,
 class ChunkSpectra(nn.Module):
     """iq float32 [..., T, 2] -> (fa, faw, hs) float32 [..., num_frames, K].
 
-    Buffer: ``w`` bf16 [8, R*w, K] (built once per config).  ``launches``
+    Buffers: ``w`` bf16 [8, R*w, K] (the plain version's) and ``w_kernel``
+    bf16 [R lw, 8K] (the kernel's), built once per config.  ``launches``
     counts kernel launches made through :meth:`forward` (one per call on
     a CUDA tensor)."""
 
@@ -107,6 +142,8 @@ class ChunkSpectra(nn.Module):
         self.k = cfg.bin_size
         self.num_frames = num_frames
         self.register_buffer("w", component_weights(
+            cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta)))
+        self.register_buffer("w_kernel", kernel_weights(
             cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta)))
         self.launches = 0
 
@@ -138,20 +175,45 @@ class ChunkSpectra(nn.Module):
         """Kernel (fa, faw, hs) [..., H, K] for a CUDA iq (not counted)."""
         if not iq.is_cuda or iq.dtype != torch.float32 or iq.shape[-1] != 2:
             raise ValueError("the chunk kernel takes CUDA float32 [..., T, 2]")
-        if self.w.device != iq.device:
-            raise ValueError(f"module on {self.w.device}, iq on {iq.device}")
+        if self.w_kernel.device != iq.device:
+            raise ValueError(f"module on {self.w_kernel.device}, "
+                             f"iq on {iq.device}")
         lead = iq.shape[:-2]
-        c = self.chunks(iq.reshape(-1, iq.shape[-2], 2)).contiguous()
-        lanes, rows = c.shape[0], c.shape[1]
+        x = iq.reshape(-1, iq.shape[-2], 2).contiguous()
+        lanes, t_len = x.shape[0], x.shape[1]
+        rows = torch.empty((lanes, self.num_frames + _R - 1, self.width),
+                           dtype=torch.bfloat16, device=iq.device)
         out = torch.empty((3, lanes, self.num_frames, self.k),
                           dtype=torch.float32, device=iq.device)
         fa, faw, hs = out[0], out[1], out[2]
         lib = _build.library()
         with torch.cuda.device(iq.device):
             err = lib.grl_chunk_spectra(
-                c.data_ptr(), self.w.data_ptr(), fa.data_ptr(),
-                faw.data_ptr(), hs.data_ptr(), lanes, rows, self.width,
-                self.num_frames, self.k, _build.stream_of(c))
+                x.data_ptr(), self.w_kernel.data_ptr(), rows.data_ptr(),
+                fa.data_ptr(), faw.data_ptr(), hs.data_ptr(), lanes, t_len,
+                self.num_frames, self.hop, self.width, self.k,
+                _build.stream_of(x))
         _build.check("grl_chunk_spectra", err)
         shape = (*lead, self.num_frames, self.k)
         return fa.reshape(shape), faw.reshape(shape), hs.reshape(shape)
+
+
+# ---- the kernel's walk in plain torch (tests) ---------------------------
+
+def tile_frames(rows: torch.Tensor, hop: int, num_frames: int):
+    """A [..., frame tiles x 128, R lw] bf16 as the kernel's TMA boxes
+    load it from the bf16 chunk rows [..., C, w]: depths d0 .. d0 + 31 (d0 a
+    multiple of 32) of the frames f0 .. f0 + 127 are the box at row f0 +
+    d0 // lw, column d0 % lw; rows past C read as zero, and no box reaches
+    the columns [lw, w)."""
+    c_rows = rows.shape[-2]
+    lw = live_width(hop)
+    fpad = -(-num_frames // FRAME_TILE) * FRAME_TILE
+    f = torch.arange(fpad)[:, None]
+    d = torch.arange(_R * lw)[None, :]
+    d0 = d // BOX * BOX
+    row = f + d0 // lw
+    col = d0 % lw + d % BOX
+    return torch.where(row < c_rows, rows[..., row.clamp(max=c_rows - 1),
+                                          col],
+                       torch.zeros((), dtype=rows.dtype))

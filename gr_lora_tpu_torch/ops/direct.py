@@ -17,10 +17,13 @@ boxes (frame f at depth d is plane row f + d // hop), so no frame matrix
 is written; the folds are taken from the accumulator registers.
 :class:`DirectSpectra` writes fa / faw / hs; :class:`DirectPeaks` runs the
 peak search in the same kernel's epilogue, a sweep along each frame's
-row of bin tiles, and writes only the [..., H, M] peaks.  The kernel
-serves hop = n / 8 a multiple of 32 samples (n = p 2^sf >= 256) and
-max_peaks up to 16, and raises otherwise.  On a CPU tensor both run
-their plain versions, the same numeric class in plain PyTorch.
+row of bin tiles, and writes only the [..., H, M] peaks.  Its per-frame
+top-M lists live in shared memory and take M <= 16 (:data:`FUSED_MAX_PEAKS`);
+for a larger M, :class:`DirectPeaks` runs K4b's kernel and then the
+``peak_topm`` kernel (ops/peak_epilogue.launch_topm), counted as a K4b
+launch, not a K4 one.  The kernel serves hop = n / 8 a multiple of 32
+samples (n = p 2^sf >= 256) and raises otherwise.  On a CPU tensor both
+run their plain versions, the same numeric class in plain PyTorch.
 
 :func:`chunk_planes`, :func:`tile_frames`, :func:`tile_spectra` and
 :func:`sweep_peaks` are the kernel's walk in plain torch, for the tests:
@@ -40,7 +43,7 @@ from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .chirp import chirp_tables
 from .dechirp import frame_signal, kaiser_window
-from .peak_epilogue import MAX_PEAKS, peaks_plain
+from .peak_epilogue import launch_topm, peaks_plain
 from .rdft_spectra import bf16_matmul
 
 _R = PYRAMID_OVERLAP_FACTOR
@@ -51,6 +54,8 @@ TILE_BINS = 16
 FRAME_TILE = 128
 BIN_TILE = 32
 BOX = 32
+#: The largest M of K4's fused peak search (its lists in shared memory).
+FUSED_MAX_PEAKS = 16
 
 
 @lru_cache(maxsize=4)
@@ -166,8 +171,9 @@ class DirectPeaks(nn.Module):
     valid), each [..., num_frames, M] — the peak_lattice_fn contract.
 
     The weights and the plain spectra are the ``front`` submodule's (K4b).
-    ``launches`` counts K4 launches (one per call on a CUDA tensor); they
-    do not count as K4b's."""
+    ``launches`` counts K4 launches (one per call on a CUDA tensor at M <=
+    FUSED_MAX_PEAKS); they do not count as K4b's.  A larger M runs the
+    ``front`` (K4b, counted there) and the ``peak_topm`` kernel."""
 
     def __init__(self, cfg: LoraConfig, num_frames: int, max_peaks: int = 8):
         super().__init__()
@@ -180,6 +186,9 @@ class DirectPeaks(nn.Module):
     def forward(self, iq: torch.Tensor):
         if iq.device.type == "cpu":
             return self.plain(iq)
+        if self.max_peaks > FUSED_MAX_PEAKS:
+            return launch_topm(*self.front(iq), self.threshold,
+                               self.max_peaks)
         out = self.kernel(iq)
         self.launches += 1
         return out
@@ -190,10 +199,11 @@ class DirectPeaks(nn.Module):
 
     def kernel(self, iq: torch.Tensor):
         """Kernel peaks for a CUDA iq (not counted): the product and the
-        peak search in one launch, no [H, K] array."""
+        peak search in one launch, no [H, K] array; M <= FUSED_MAX_PEAKS."""
         m = self.max_peaks
-        if not 1 <= m <= MAX_PEAKS:
-            raise ValueError(f"max_peaks must be in [1, {MAX_PEAKS}]")
+        if not 1 <= m <= FUSED_MAX_PEAKS:
+            raise ValueError(f"max_peaks of the fused search must be in "
+                             f"[1, {FUSED_MAX_PEAKS}]")
         fr = self.front
         x, lead, planes = fr.launch_args(iq)
         lanes, t_len = x.shape[0], x.shape[1]

@@ -21,9 +21,6 @@ import torch
 
 from . import _build
 
-#: Largest M the kernel keeps in registers per thread.
-MAX_PEAKS = 16
-
 
 def peaks_plain(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
                 threshold: float, max_peaks: int):
@@ -47,9 +44,9 @@ def peaks_plain(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
 def launch_topm(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
                 threshold: float, max_peaks: int):
     """Kernel version of :func:`peaks_plain` for contiguous CUDA f32
-    ``[..., K]`` spectra."""
-    if not 1 <= max_peaks <= MAX_PEAKS:
-        raise ValueError(f"max_peaks must be in [1, {MAX_PEAKS}]")
+    ``[..., K]`` spectra, any M in [1, K]."""
+    if not 1 <= max_peaks <= faw.shape[-1]:
+        raise ValueError(f"max_peaks must be in [1, K = {faw.shape[-1]}]")
     for t in (fa, faw, hs):
         if (not t.is_cuda or t.dtype != torch.float32
                 or not t.is_contiguous() or t.shape != faw.shape):

@@ -6,6 +6,11 @@ an NVIDIA GPU and nvcc, run ``python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py`` (the file imports no JAX; the repo's
 conftest.py does, and such a machine need not have it).
 
+Shapes beyond the always-on main path: K5 and K2 at fft_factor 16 (the
+wider ring), peak_topm and K4 at M > 16 (K4 then runs K4b and
+peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples) and on ragged frame
+counts.
+
 Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
 rtol 1e-3; a peak may differ only where an f32 tie decides it, see
@@ -87,7 +92,8 @@ def test_rdft_kernel_matches_plain(dev, sf, ff):
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
 
 
-@pytest.mark.parametrize("sf,ff,p", [(10, 8, 2), (12, 8, 2), (10, 1, 4)])
+@pytest.mark.parametrize("sf,ff,p", [(10, 8, 2), (12, 8, 2), (10, 1, 4),
+                                     (7, 16, 2)])
 def test_overlap_kernel_matches_plain(dev, sf, ff, p):
     """The kernel rounds every operation as the plain version does, in its
     order: folds and peaks are equal bit for bit.  Includes p = 4, where
@@ -109,7 +115,7 @@ def test_overlap_kernel_matches_plain(dev, sf, ff, p):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 64])
 def test_topm_kernel_equals_plain(dev, m):
     """Random folds with many peaks, exact ties and peaks on the cyclic
     edges: the kernel epilogue is the plain one, bit for bit."""
@@ -137,18 +143,18 @@ def test_kernel_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         OverlapSpectra(cfg, 16).to(dev).from_chunks(
             torch.zeros((8, 2048, 2), device=dev))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):          # M above K
         launch_topm(*(torch.zeros(4, 64, device=dev) for _ in range(3)),
-                    5.0, 17)
+                    5.0, 65)
     # The direct kernel's limits: hop = n / 8 a multiple of 32 samples (p 1
-    # at SF7 gives 16), max_peaks at most 16.
+    # at SF7 gives 16), max_peaks of the fused search at most 16.
     x = torch.zeros((2, 4096, 2), device=dev)
     for mod in (DirectSpectra(_cfg(7, 8, 1), 16),
                 DirectPeaks(_cfg(7, 8, 1), 16)):
         with pytest.raises(RuntimeError, match="multiple of 32"):
             mod.to(dev)(x)
     with pytest.raises(ValueError, match="max_peaks"):
-        DirectPeaks(cfg, 16, 17).to(dev)(x)
+        DirectPeaks(cfg, 16, 17).to(dev).kernel(x)
 
 
 def _dense_close(kern, plain, rtol):
@@ -190,6 +196,77 @@ def test_direct_peaks_kernel_matches_plain(dev, sf, ff):
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
 
 
+@pytest.mark.parametrize("m", [17, 32, 64])
+def test_direct_peaks_large_m_match_plain(dev, m):
+    """K4 beyond its fused search's 16: K4b then peak_topm, counted as a
+    K4b launch; the plain peaks up to f32 ties."""
+    cfg = _cfg(8, 8)
+    iq, total = _lanes(cfg, 3, m)
+    mod = DirectPeaks(cfg, num_hops_for(cfg, total), m).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    assert mod.launches == 0 and mod.front.launches == 1
+    assert kern[0].shape[-1] == m
+    plain = mod.plain(x)
+    assert plain[3].any()
+    _, faw, _ = mod.front.plain(x)
+    compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("cls", [RdftSpectra, ChunkSpectra])
+@pytest.mark.parametrize("ff", [8, 1])
+def test_dense_kernels_p1_match_plain(dev, cls, ff):
+    """K3 and K6 at SF7 p 1: n 128, hop 16 samples (K4b refuses it)."""
+    cfg = _cfg(7, ff, 1)
+    iq, total = _lanes(cfg, 3, 30 + ff)
+    mod = cls(cfg, num_hops_for(cfg, total)).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    assert mod.launches == 1
+    plain = mod.plain(x)
+    _dense_close(kern, plain, 1e-4)
+    ref = peaks_plain(*plain, cfg.threshold, 8)
+    assert ref[3].any()
+    compare_peaks(ref, peaks_plain(*kern, cfg.threshold, 8), 1e-3,
+                  faw=plain[1], threshold=cfg.threshold)
+
+
+def test_rdft_peaks_kernel_p1_matches_plain(dev):
+    """K1 at SF7 p 1 (its front end K3 at n 128)."""
+    cfg = _cfg(7, 8, 1)
+    iq, total = _lanes(cfg, 3, 41)
+    mod = RdftPeaks(cfg, num_hops_for(cfg, total), 8).to(dev)
+    x = torch.from_numpy(iq).to(dev)
+    kern = mod(x)
+    plain = mod.plain(x)
+    _, faw, _ = mod.front.plain(x)
+    assert plain[3].any()
+    compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
+
+
+@pytest.mark.parametrize("sf,ff", [(7, 2), (8, 8)])
+def test_rdft_kernels_ragged_frames(dev, sf, ff):
+    """K3 and K1 on a frame count that is no multiple of the 64-frame
+    tile, from a stream shorter than the frames need: K3 within 1e-4 of
+    its plain version with zero spectra on the padded tail, K1 the plain
+    peaks."""
+    cfg = _cfg(sf, ff)
+    iq, total = _lanes(cfg, 2, sf + 50)
+    hop = cfg.num_samples // 8
+    x = torch.from_numpy(iq[:, :total - hop // 2 - 3]).to(dev)
+    nh = num_hops_for(cfg, total) + 40
+    assert nh % 64
+    spec = RdftSpectra(cfg, nh).to(dev)
+    kern = spec(x)
+    plain = spec.plain(x)
+    _dense_close(kern, plain, 1e-4)
+    assert float(kern[0][:, -30:].abs().max()) == 0.0
+    mod = RdftPeaks(cfg, nh, 8).to(dev)
+    ref = mod.plain(x)
+    assert ref[3].any()
+    compare_peaks(ref, mod(x), 1e-3, faw=plain[1], threshold=cfg.threshold)
+
+
 @pytest.mark.parametrize("sf,ff", [(7, 2), (8, 8)])
 def test_direct_kernels_ragged_frames(dev, sf, ff):
     """K4b and K4 on a frame count that is no multiple of the 128-frame
@@ -215,11 +292,11 @@ def test_direct_kernels_ragged_frames(dev, sf, ff):
 
 
 @pytest.mark.parametrize("sf,ff,p", [(8, 8, 2), (10, 8, 2), (12, 8, 2),
-                                     (10, 1, 4)])
+                                     (10, 1, 4), (7, 16, 2), (8, 16, 2)])
 def test_overlap_spectra_kernel_equals_plain(dev, sf, ff, p):
     """K5 (K2's front end as its own op) equals its plain version bit for
-    bit, at SF8 and at the SF10-12 points the JAX kernel's tile cap
-    refuses."""
+    bit, at SF8, at the SF10-12 points the JAX kernel's tile cap refuses
+    and at fft_factor 16 (window halo 112 bins: the wider ring)."""
     cfg = _cfg(sf, ff, p)
     iq, total = _lanes(cfg, 2, sf + 3)
     nh = min(num_hops_for(cfg, total), 128)
@@ -294,6 +371,23 @@ def test_gateway_on_card_decodes_golden(dev):
     for c in range(2):
         assert (c, PDU1) in got and (c, PDU2) in got, got
     assert gw.lattice(8).launches > 0
+
+
+def test_fused_sf9_ff16_runs_k2(dev):
+    """backend "fused" at SF9 x ff 16, p 2 is K2 (as the JAX dispatch
+    sends it) and returns its plain peaks on the card."""
+    from gr_lora_tpu_torch.models.pyramid import peak_lattice_fn
+    cfg = _cfg(9, 16)
+    iq, total = _lanes(cfg, 2, 9)
+    nh = min(num_hops_for(cfg, total), 96)
+    lat = peak_lattice_fn(cfg, nh, 8, "fused").to(dev)
+    assert isinstance(lat, OverlapPeaks)
+    g = lat.plan.chunk_dft(torch.from_numpy(iq).to(dev), nh)
+    kern = lat.from_chunks(g)
+    plain = lat.plain_from_chunks(g)
+    assert plain[3].any() and lat.launches == 1
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
 
 
 def test_chunk_spectra_kernel_ragged_frames(dev):

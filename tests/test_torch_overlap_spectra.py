@@ -5,7 +5,9 @@ and the plan facts the walk rests on.
 The walk substitutes e = c + sigma_1 b and takes rho_j[c] from one period
 (``rho_period``), so it needs sigma_j = j sigma_1 (mod F) with sigma_1 a
 multiple of P = 8 fft_factor, and ``rho_period`` close to the full table
-(within 7e-16 N: 6e-12 up to N = 8192).  The model rounds every
+(within 7e-16 N: 6e-12 up to N = 8192).  fft_factor 16 is included: its
+window halo is 112 bins, so a band's row with both halos is 480 columns
+(the kernel's wider ring instance).  The model rounds every
 operation as ``spectra_from_chunks`` does, in its order: the two must be
 equal bit for bit, for small bands (including the ones whose rows wrap
 at F), several hop runs, p = 2 (every column yields an output through
@@ -25,7 +27,8 @@ GRID = [(sf, ff, p) for sf in range(7, 13) for ff in (1, 2, 8)
 
 
 @pytest.mark.parametrize("sf,ff,p", [(sf, ff, p) for sf in (7, 8)
-                                     for ff in (1, 2, 8) for p in (2, 4)])
+                                     for ff in (1, 2, 8) for p in (2, 4)]
+                         + [(7, 16, 2), (8, 16, 2)])
 def test_sheared_walk_equals_plain(sf, ff, p):
     plan = OverlapPlan(sf, p, ff, 25.0)
     f, nh = plan.fft_size, 28

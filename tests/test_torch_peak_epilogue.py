@@ -30,7 +30,7 @@ def _jax_epilogue(fa, faw, hs, threshold, m):
     return top_bins.astype(jnp.int32), h, h_single, valid
 
 
-@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 64])
 def test_peaks_plain_matches_jax_epilogue(m):
     rng = np.random.default_rng(m)
     faw = (rng.random((2, 9, 512)) * 10).astype(np.float32)
