@@ -10,8 +10,9 @@ kernels on the same card.  It calls only the modules' stable entry
 points, so a parent whose chip_smoke.py lacks a phase is still timed.
 One run times, with CUDA events after one warm-up launch (10 launches
 each): K1 (rDFT peaks) at SF7, SF8 and SF9 and K2 (overlap peaks, from
-its chunk spectra; also its front end and its top-M apart) at SF10 and
-SF12 on chip_smoke.py's north-star event windows (8 lanes); then, on
+its chunk spectra) at SF10 and SF12 on chip_smoke.py's north-star event
+windows (8 lanes), each whole and as the unfused pair (its dense front
+end, K3's or K5's kernel, and peak_topm on what that wrote); then, on
 chip_smoke.py's always-on block (16 channels x 2048 hops at SF8 x ff
 8), K5 on the block's chunk spectra (first, before the others
 allocate), K3, K4b and K6; then P1 at the main dot shape.  Prints each run's JSON line, then the parent's and the change's
@@ -77,8 +78,16 @@ def one(tree: str) -> dict:
             mod = gw.lattice(sf)
             x = smoke._event_windows(iq_dev, gw, singles, sf,
                                      gw.event_batch, gw._win_samples(st))
-            ms[f"K1 SF{sf} [{x.shape[0]}, {mod.num_frames}]"] = \
-                smoke._time_ms(lambda: mod(x), ITERS)
+            tag = f"SF{sf} [{x.shape[0]}, {mod.num_frames}]"
+            ms[f"K1 {tag}"] = smoke._time_ms(lambda: mod(x), ITERS)
+            # The unfused pair: K3's kernel and the top-M on its folds.
+            sp = mod.front.kernel(x)
+            ms[f"K1 front {tag}"] = smoke._time_ms(
+                lambda: mod.front.kernel(x), ITERS)
+            ms[f"K1 top-M {tag}"] = smoke._time_ms(
+                lambda: launch_topm(*sp, mod.threshold, mod.max_peaks),
+                ITERS)
+            del sp
         for sf in (10, 12):
             lat = gw.lattice(sf)
             mod = lat.inner
@@ -88,8 +97,8 @@ def one(tree: str) -> dict:
             tag = f"SF{sf} [{x.shape[0]}, {mod.num_hops}]"
             ms[f"K2 {tag}"] = smoke._time_ms(lambda: mod.from_chunks(g),
                                              ITERS)
-            # K2's two launches apart: its front end (K5's kernel) and
-            # the top-M on what that wrote.
+            # The unfused pair: its front end (K5's kernel) and the top-M
+            # on what that wrote.
             sp = mod.front.kernel(g)
             ms[f"K2 front {tag}"] = smoke._time_ms(
                 lambda: mod.front.kernel(g), ITERS)

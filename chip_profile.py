@@ -16,8 +16,12 @@ Each path: one warm pass (feed), three timed ones (host wall each, and the
 gateway's wall split summed over the three), then one under torch.profiler:
 the device's busy time (the union of its kernel and copy intervals), the
 idle share of that pass's wall time, and device time by kernel name.
-Prints one line per path and, as the last line, a JSON object with every
-number.  Needs a CUDA device.
+Then the north star's peak lattices alone: K1 (SF7-9) and K2 (SF10, SF12)
+on chip_smoke.py's event windows, ten calls each under torch.profiler,
+device time a call by kernel (the product or walk, a pre-pass, the
+merge), and for K2 the peaks a band of 256 columns and hop (from its
+front end's dense folds).  Prints one line per path and lattice and, as
+the last line, a JSON object with every number.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ import sys
 import time
 
 from chip_smoke import (AO_BACKENDS, AO_BLOCK_HOPS, AO_CHANNELS, AO_CHUNK,
-                        CHANNELS, SFS, T, always_on_fixture, base_config,
-                        fail, north_star_fixture)
+                        CHANNELS, SFS, T, _event_windows, always_on_fixture,
+                        base_config, fail, north_star_fixture)
 
 TIMED_PASSES = 3
 TOP_KERNELS = 10
@@ -98,6 +102,57 @@ def _profile(label: str, gw, iq, card: str, chunk: int | None) -> dict:
             "x_realtime_per_channel": [per_ch / s for s in secs]}
 
 
+def _lattices(gw, iq_dev, singles, card: str) -> dict:
+    """Device time a call by kernel of the north star's K1 and K2 on
+    their event windows (ten calls under torch.profiler), and K2's peaks
+    a band of 256 columns and hop."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for sf in (7, 8, 9, 10, 12):
+        st = gw.sf_states[sf]
+        lat = gw.lattice(sf)
+        mod = lat.inner if sf >= 10 else lat
+        x = _event_windows(iq_dev, gw, singles, sf, gw.event_batch,
+                           lat.seg if sf >= 10 else gw._win_samples(st))
+        res = {}
+        if sf >= 10:
+            g = mod.plan.chunk_dft(x, mod.num_hops)
+            _, faw, _ = mod.front.kernel(g)
+            peak = ((faw > mod.threshold) & (faw > faw.roll(1, -1))
+                    & (faw > faw.roll(-1, -1)))
+            band = peak.reshape(*peak.shape[:-1], -1, 256).sum(-1).float()
+            res["peaks_per_band_hop"] = {"mean": float(band.mean()),
+                                         "max": float(band.max())}
+            del faw, peak, band
+
+            def call():
+                return mod.from_chunks(g)
+        else:
+            def call():
+                return mod(x)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        ms = {e.key: e.device_time_total / 1e3 / 10
+              for e in prof.key_averages() if e.device_time_total > 0}
+        res["device_ms_per_call"] = ms
+        kern = ", ".join(f"{k[:48]} {v:.4f}" for k, v in
+                         sorted(ms.items(), key=lambda kv: -kv[1]))
+        dens = res.get("peaks_per_band_hop")
+        extra = (f" peaks_per_band_hop[mean={dens['mean']:.3f} "
+                 f"max={dens['max']:.0f}]" if dens else "")
+        print(f"profile lattice SF{sf} {type(mod).__name__} "
+              f"[{x.shape[0]}, {x.shape[1]}, 2] on {card}: "
+              f"device_ms_per_call[{kern}]{extra}")
+        out[f"SF{sf}"] = res
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -119,12 +174,15 @@ def main() -> None:
     gw = TriggeredPyramidGateway(base_config(), CHANNELS, sfs=SFS,
                                  max_payload_len=16, backend="fused",
                                  device=dev)
-    iq, _ = north_star_fixture({sf: st.cfg for sf, st in
-                                gw.sf_states.items()})
+    iq, singles = north_star_fixture({sf: st.cfg for sf, st in
+                                      gw.sf_states.items()})
+    iq_dev = torch.from_numpy(iq).to(dev)
     results["north_star"] = _profile(
-        f"north-star {CHANNELS}ch x SF7-12 fused", gw,
-        torch.from_numpy(iq).to(dev), card, None)
-    del gw, iq
+        f"north-star {CHANNELS}ch x SF7-12 fused", gw, iq_dev, card, None)
+    with torch.no_grad():
+        results["north_star_lattices"] = _lattices(gw, iq_dev, singles,
+                                                   card)
+    del gw, iq, iq_dev
     torch.cuda.empty_cache()
 
     cfg = base_config()

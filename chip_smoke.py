@@ -13,7 +13,9 @@ the final ``ok`` line):
 3. parity  — each hand-written kernel against its plain PyTorch version
    on the card at main-path shapes, with CUDA-event times of both:
    K1 rDFT peaks at SF7/SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8
-   event lanes (the gated gateway's windows); K3 rDFT spectra, K4b direct
+   event lanes (the gated gateway's windows; their peak searches fused:
+   each call's peak allocation must stay below one [lanes, hops, K] f32
+   array); K3 rDFT spectra, K4b direct
    spectra and K6 chunk spectra (each beside cuBLAS's time for its bare
    product, torch.matmul of the same bf16 operands; ``peak_topm`` timed at
    M = 8 and M = 32 on K3's spectra), K4 direct peaks (its
@@ -21,7 +23,8 @@ the final ``ok`` line):
    [lanes, hops, K] f32 array) and K5 overlap spectra on one always-on
    block of 16 channels x 2048 hops at SF8 (K5 also on the SF12 block of
    the multi-SF gateway); then, on 3 lanes of one packet each, K5 and K2
-   at SF7 x fft_factor 16, every kernel backend's lattice at M = 32, K3,
+   at SF7 x fft_factor 16 (both timed), every kernel backend's lattice at
+   M = 32 (above the fused searches' 16: the dense route), K3,
    K1 and K6 at SF7 p 1 (hop 16 samples) and K3 and K1 on a ragged frame
    count.  Tolerances: K1, K3, K4b, K6 and K4 sum bf16 products in
    another order than their plain versions — the same peaks up to f32
@@ -301,7 +304,8 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
             fail(f"SF{sf} lattice is {type(mod).__name__}, not K1")
         x = _event_windows(iq_dev, gw, singles, sf, lanes,
                            gw._win_samples(st))
-        kern = mod(x)
+        kern, alloc = _fused_alloc("rdft_peaks", lambda: mod(x), lanes,
+                                   mod.num_frames, mod.front.k)
         plain = mod.plain(x)
         _, faw, _ = mod.front.plain(x)
         torch.cuda.synchronize()
@@ -318,7 +322,7 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
                        lanes * mod.num_frames * 16 * fr.n * (fr.k + 1))
         print(f"parity K1 rdft_peaks {shape}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound[0]:.4f}")
+              f"bound_ms={bound[0]:.4f} alloc_bytes={alloc}")
         report["rdft_peaks"].append(_row(err, ms, plain_ms, shape, bound))
     for sf in (10, 12):
         st = gw.sf_states[sf]
@@ -329,7 +333,9 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         mod = lat.inner
         x = _event_windows(iq_dev, gw, singles, sf, lanes, lat.seg)
         g = mod.plan.chunk_dft(x, mod.num_hops)
-        kern = mod.from_chunks(g)
+        kern, alloc = _fused_alloc("overlap_peaks",
+                                   lambda: mod.from_chunks(g), lanes,
+                                   mod.num_hops, mod.front.k)
         plain = mod.plain_from_chunks(g)
         torch.cuda.synchronize()
         # K2 rounds every operation as its plain version does: exact.
@@ -346,11 +352,30 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
         print(f"parity K2 overlap_peaks {shape}: max_abs_err={err:.6g} "
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound[0]:.4f} "
-              f"unfused_floor_ms={_unfused_floor_ms(ops):.4f}")
+              f"unfused_floor_ms={_unfused_floor_ms(ops):.4f} "
+              f"alloc_bytes={alloc}")
         report["overlap_peaks"].append(_row(err, ms, plain_ms, shape,
                                             bound))
         report["overlap_peaks"][-1]["unfused_floor_ms"] = \
             _unfused_floor_ms(ops)
+
+
+def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
+    """(call(), the bytes it allocated at its peak): a fused peak lattice
+    writes no [lanes, hops, K] array, so its call stays below one f32 such
+    array (its scratch, candidates and peaks)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - base
+    if alloc >= 4 * lanes * hops * k:
+        fail(f"{name} allocated {alloc} bytes, as much as a dense "
+             f"[{lanes}, {hops}, {k}] f32 array")
+    return out, alloc
 
 
 def main_path(gw, iq_dev, singles, card: str) -> dict:
@@ -502,17 +527,8 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         torch.cuda.empty_cache()
 
     mod = DirectPeaks(cfg8, hops, 8).to(dev)
-    # The fused peak search writes no [lanes, hops, K] array: the call's
-    # peak allocation (planes and peaks) stays below one.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    kern = mod(x8)
-    torch.cuda.synchronize()
-    k4_alloc = torch.cuda.max_memory_allocated() - base
-    if k4_alloc >= 4 * lanes * hops * k:
-        fail(f"direct_peaks allocated {k4_alloc} bytes, as much as a "
-             f"dense [{lanes}, {hops}, {k}] f32 array")
+    kern, k4_alloc = _fused_alloc("direct_peaks", lambda: mod(x8), lanes,
+                                  hops, k)
     plain = mod.plain(x8)
     _, faw, _ = mod.front.plain(x8)
     torch.cuda.synchronize()
@@ -659,8 +675,11 @@ def parity_extra(cfg8, dev) -> None:
     if not (bool(plain[3].any())
             and all(torch.equal(a, b) for a, b in zip(kern, plain))):
         fail("overlap_peaks SF7 ff16 differs from its plain version")
+    # The 4-column ring instances (ff 16): K5's and K2's fused one.
+    k5_ms = _time_ms(lambda: mod.front.kernel(g), 5)
+    k2_ms = _time_ms(lambda: mod.from_chunks(g), 5)
     print(f"parity-extra K5, K2 SF7 ff16 G {list(g.shape)}: equal bit for "
-          "bit")
+          f"bit; K5 ms={k5_ms:.4f} K2 ms={k2_ms:.4f}")
     del g
 
     thr = float(cfg8.threshold)
@@ -674,8 +693,12 @@ def parity_extra(cfg8, dev) -> None:
         if kern[0].shape != plain[0].shape or not bool(plain[3].any()):
             fail(f"{backend} at M = 32: peaks {tuple(kern[0].shape)}")
         err, ties = _compare(kern, plain, sp[1], 1e-3, thr)
+        # M = 32 is above the fused searches' 16: K1, K2 and K4 run their
+        # dense front end and peak_topm, counted as the front's launch.
+        fused = getattr(lat, "launches", 0)
         print(f"parity-extra {backend} ({type(lat).__name__}) SF8 M=32: "
-              f"max_abs_err={err:.6g} tie_peaks={ties}")
+              f"max_abs_err={err:.6g} tie_peaks={ties} "
+              f"fused_launches={fused} front_launches={lat.front.launches}")
 
     cfg = cfg_of(7, 8, 1)
     x, nh = _packet_lanes(cfg, 3, 9, dev)
@@ -919,8 +942,14 @@ def probes(dev, card: str, report: dict, launches: dict) -> None:
 
 #: Where each peak kernel's top-M runs.
 EPILOGUE = {
-    "rdft_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
-    "overlap_peaks": "gr_lora_tpu_torch/csrc/peak_topm.cu",
+    "rdft_peaks": "fused: gr_lora_tpu_torch/csrc/rdft_spectra.cu (sweep "
+                  "in the product's epilogue, units of 4 pair tiles) and "
+                  "the merge of csrc/peak_topm.cu for M <= 16; a larger M "
+                  "runs rdft_spectra and peak_topm.cu",
+    "overlap_peaks": "fused: gr_lora_tpu_torch/csrc/overlap_spectra.cu "
+                     "(search of each band after the window) and the merge "
+                     "of csrc/peak_topm.cu for M <= 16; a larger M runs "
+                     "overlap_spectra and peak_topm.cu",
     "direct_peaks": "fused: gr_lora_tpu_torch/csrc/direct_spectra.cu "
                     "(row sweep in the product's epilogue) for M <= 16; "
                     "a larger M runs direct_spectra and peak_topm.cu",

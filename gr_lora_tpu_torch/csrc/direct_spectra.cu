@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "peak_merge.cuh"
 #include "tma_ring.cuh"
 
 namespace {
@@ -82,17 +83,13 @@ using ring::kBox;
 using ring::kBoxA;
 constexpr int kBn = 256;           // W columns per tile
 constexpr int kTileBins = kBn / 8; // 32 bins per tile
-constexpr int kMaxM = 16;
+constexpr int kMaxM = peaks::kMaxM;
 constexpr int kR = 8;              // frames per symbol (n / hop)
 constexpr uint32_t kStageA = 2 * kBoxA;        // 16 KB
 constexpr uint32_t kStageB = kBn / 64 * ring::kBoxB;   // 32 KB
 
-struct Cand {
-    float v;      // faw
-    int b;        // bin
-    float h;      // fa
-    float hs;     // hs
-};
+using peaks::Cand;     // (faw, bin, fa, hs)
+using peaks::insert;
 
 struct Out {
     float* fa;          // K4b, K6: [lanes, frames, k] each
@@ -133,21 +130,6 @@ __device__ __forceinline__ float faw_of(const float (&d)[128], int p, int i,
                                         int c) {
     return __fadd_rn(cabs_rn(d[reg(p, 4, i, c)], d[reg(p, 5, i, c)]),
                      cabs_rn(d[reg(p, 6, i, c)], d[reg(p, 7, i, c)]));
-}
-
-__device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
-    return a.v > b.v || (a.v == b.v && a.b < b.b);
-}
-
-// Insert into a list of m candidates sorted best first.
-__device__ __forceinline__ void insert(Cand* list, int m, const Cand& c) {
-    if (!better(c, list[m - 1])) return;
-    int pos = m - 1;
-    while (pos > 0 && better(c, list[pos - 1])) {
-        list[pos] = list[pos - 1];
-        --pos;
-    }
-    list[pos] = c;
 }
 
 // K4b's A walk: the box of depths d .. d + 31 of the frames f0 .. f0 + 127

@@ -2,10 +2,10 @@
 // from the chunk spectra G, for large SF at the collision zoom.
 //
 // Replaces gr_lora_tpu/ops/pallas_overlap.py `make_overlap_spectra` /
-// `_kernel` (K5, whole; the chunk DFT stays outside, as there), and is the
-// front end of gr_lora_tpu/ops/pallas_peaks.py `make_overlap_peaks` /
-// `_kernel` (K2: the j-sum, window convolution and folds; its peak search
-// is csrc/peak_topm.cu).  With hop h = N/8, F = fft_factor * N, per hop b:
+// `_kernel` (K5, whole; the chunk DFT stays outside, as there) and
+// gr_lora_tpu/ops/pallas_peaks.py `make_overlap_peaks` / `_kernel` (K2,
+// with peak_topm.cu's merge).  With hop h = N/8, F = fft_factor * N, per
+// hop b:
 //
 //   X_b[c]  = sum_{j<8} rho_j[c] * G[b + j, (c - sigma_j) mod F]
 //   Xw_b[c] = sum_q tap_q * X_b[(c - shift_q) mod F]      (~15 taps)
@@ -48,12 +48,31 @@
 // up to fft_factor 8, where the halo is 56 bins (73 728 B of shared memory,
 // 3 blocks an SM); 512 (kCols 4) at fft_factor 16, where it is 112 (98 304
 // B, 2 blocks an SM).
+//
+// K2 is the peak instance of the same walk (Mode): it writes no folds.
+// After the window it keeps faw of its band's columns in shared memory, and
+// each column tests its neighbour columns there: at p = 2 columns e - 1 and
+// e + 1 hold bins c - 1 and c + 1 mod K, the fold's wrap included.  A
+// band's peaks of a hop (at most 128) are gathered by column, ranked by
+// value and bin, and the best M written as that band's list.  At p = 2 a
+// band's first and last columns have their outer neighbours in the next
+// bands, so they go to the merge as deferred pairs.  Computing those two
+// neighbours' windows in the block instead (one or two threads doing a
+// whole window while the block waits at the barrier) doubled K2's time on
+// the H100, 0.85 to 1.69 ms at SF10.  At p != 2 the cyclic neighbours of bins 0 and
+// K - 1 are no adjacent columns: those two are deferred, and the band's
+// edge columns see the two beyond it through a halo one column wider (58
+// at ff 8, 372 of 384 columns; 114 at ff 16, 484 of 512), computed so.
+// The peak instances add 2 328 B of shared memory (3 blocks an SM still
+// fit at ff 8) and two barriers a pair of hops; no [lanes, hops, K] array
+// is written, and K5's instance is unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "peak_merge.cuh"
 
 namespace {
 
@@ -104,15 +123,160 @@ __device__ __forceinline__ void window_tap(float2 (&xw)[2][2],
         }
 }
 
-template <int kCols>
+// The walk's instances: K5 writes the folds; K2 searches each band for
+// peaks and defers the bins whose neighbour it cannot see to the merge: at
+// p = 2 (kBandPairs) each band's first and last column, whose neighbours are
+// the next bands' edge columns; at p != 2 (kHaloEdges) bins 0 and K - 1,
+// whose neighbours across the wrap are no adjacent columns, while the
+// band's edge columns see the two columns beyond it through a halo one
+// column wider.
+enum Mode { kSpectra, kBandPairs, kHaloEdges };
+
+// Where a launch writes: K5 the folds [lanes, hops, K] each; K2 the
+// candidates of each hop and band [lanes * hops, bands, m] and the
+// deferred pairs [lanes * hops, bands, 2] (kBandPairs: pair i is band i's
+// last column and band i + 1's first, cyclically) or [lanes * hops, 1, 2]
+// (kHaloEdges: bins 0 and K - 1) (peak_merge.cuh).
+struct Out {
+    float* fa;
+    float* faw;
+    float* hs;
+    peaks::Cand* lists;
+    peaks::Cand* pairs;
+    int m;
+    float threshold;
+};
+
+// K2's shared memory behind the ring and the X rows: faw of the band's
+// columns (kHaloEdges: and of the one beyond each end) at both hops of a
+// pair, and each hop's peak columns.
+struct PeakSmem {
+    float fw[2][kBand + 2];
+    int count[2];
+    unsigned char col[2][kBand / 2];    // strict maxima: at most every other
+};
+
+// fa and hs of the column at `xh` (its two sides kStride apart).
+template <int kStride>
+__device__ __forceinline__ void fold_at(const float2* xh, float& fa,
+                                        float& hs) {
+    const float m0 = cmag(xh[0]), m1 = cmag(xh[kStride]);
+    fa = __fadd_rn(m0, m1);
+    hs = fmaxf(m0, m1);
+}
+
+// K2, after the window of hops b and b + 1: faw of every column of the
+// band (kHaloEdges: and of the two beyond it, the wider halo's first), then
+// each column's peak test against its neighbour columns; a band's peaks of
+// a hop go to its list in rank order (value, then bin), the best M, and an
+// end entry behind them.  The deferred bins (see Mode) go to the pairs with
+// their bin where they beat the threshold and their neighbour inside the
+// band, else -1.  `c` holds this column's bins; the bins of a band's
+// columns ascend by one a column, modulo K (p = 2, the fold) or F.  Every
+// thread of the block calls this (two barriers).
+template <int kStride, int kMode>
+__device__ __forceinline__ void peak_step(
+    PeakSmem& ps, const Out& out, const float2 (&xw)[2][2],
+    const float2* col, const float4* tap_s, int ntaps, const bool (&emit)[2],
+    const int (&c)[2], int b, int b1, long long lane, int hops, int f,
+    int k) {
+    constexpr int o = kMode == kHaloEdges;       // column t at fw[t + o]
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        ps.fw[h][t + o] = __fadd_rn(cmag(xw[h][0]), cmag(xw[h][1]));
+    if (kMode == kHaloEdges && (t == 0 || t == kThreads - 1)) {
+        const float2* ce = col + (t == 0 ? -1 : 1);
+        float2 xe[2][2];
+#pragma unroll
+        for (int q = 0; q < kTaps - 1; ++q)
+            window_tap<kStride>(xe, ce, tap_s[q], q == 0);
+        if (ntaps == kTaps)
+            window_tap<kStride>(xe, ce, tap_s[kTaps - 1], false);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            ps.fw[h][t == 0 ? 0 : kBand + 1] =
+                __fadd_rn(cmag(xe[h][0]), cmag(xe[h][1]));
+    }
+    __syncthreads();
+    const int span = f == 2 * k ? k : f;         // bins of the columns mod
+    const int last = min(kBand, span - (int)blockIdx.x * kBand) - 1;
+    bool cand[2];
+    float v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        v[h] = ps.fw[h][t + o];
+        const float l = ps.fw[h][max(t + o - 1, 0)];
+        const float r = ps.fw[h][min(t + o + 1, kBand + 1)];
+        int pair, end;
+        if (kMode == kBandPairs) {
+            end = t == 0 ? 1 : 0;
+            pair = t == 0 ? (blockIdx.x + gridDim.x - 1) % gridDim.x
+                          : blockIdx.x;
+        } else {
+            end = c[h] != 0;
+            pair = 0;
+        }
+        const bool edge = kMode == kBandPairs
+                              ? t == 0 || t == last
+                              : c[h] == 0 || c[h] == k - 1;
+        cand[h] = emit[h] && !edge && v[h] > out.threshold && v[h] > l &&
+                  v[h] > r;
+        if (emit[h] && edge) {
+            // The neighbour inside the band: right of a first column (of
+            // bin 0), left of a last one (of bin K - 1).
+            const float inner =
+                (kMode == kBandPairs ? t == 0 : c[h] == 0) ? r : l;
+            peaks::Cand e;
+            e.v = v[h];
+            e.b = v[h] > out.threshold && v[h] > inner ? c[h] : -1;
+            fold_at<kStride>(col + h * 2 * kStride, e.h, e.hs);
+            const int np = kMode == kBandPairs ? gridDim.x : 1;
+            out.pairs[((lane * hops + b + h) * np + pair) * 2 + end] = e;
+        }
+        if (cand[h]) ps.col[h][atomicAdd(&ps.count[h], 1)] = (unsigned char)t;
+    }
+    const bool any = __syncthreads_or(cand[0] || cand[1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        if (b + h >= b1) continue;
+        const int n = ps.count[h];
+        peaks::Cand* list =
+            out.lists +
+            ((lane * hops + b + h) * gridDim.x + blockIdx.x) * out.m;
+        if (any && cand[h]) {
+            int rank = 0;
+            for (int i = 0; i < n; ++i) {
+                const int u = ps.col[h][i];
+                const float vu = ps.fw[h][u + o];
+                int bu = (c[h] + u - t) % span;
+                if (bu < 0) bu += span;
+                if (vu > v[h] || (vu == v[h] && bu < c[h])) ++rank;
+            }
+            if (rank < out.m) {
+                peaks::Cand e;
+                e.v = v[h];
+                e.b = c[h];
+                fold_at<kStride>(col + h * 2 * kStride, e.h, e.hs);
+                list[rank] = e;
+            }
+        }
+        if (t == 0 && n < out.m) {
+            const peaks::Cand end = {-INFINITY, 0x7fffffff, 0.0f, 0.0f};
+            list[n] = end;
+        }
+    }
+}
+
+template <int kCols, int kMode>
 __global__ void __launch_bounds__(kThreads, kCols == 3 ? 3 : 2)
 overlap_spectra_kernel(const float2* __restrict__ g,
                        const float2* __restrict__ rho_period,
                        const int* __restrict__ shifts,
-                       const float2* __restrict__ taps,
-                       float* __restrict__ fa, float* __restrict__ faw,
-                       float* __restrict__ hs, int rows_g, int hops, int f,
-                       int k, int s1, int period, int ntaps, int hp, int run) {
+                       const float2* __restrict__ taps, Out out, int rows_g,
+                       int hops, int f, int k, int s1, int period, int ntaps,
+                       int hp, int run) {
+    constexpr bool kPeaks = kMode != kSpectra;
     constexpr int kStride = stride_of<kCols>();
     extern __shared__ __align__(16) unsigned char smem[];
     // A side's columns: band + 2 halo, padded to kStride (a multiple of P,
@@ -121,6 +285,7 @@ overlap_spectra_kernel(const float2* __restrict__ g,
     const int width = kBand + 2 * hp;
     float2* ring = reinterpret_cast<float2*>(smem);     // [kSlots][2][kStride]
     float2* xs = ring + kSlots * 2 * kStride;           // [2][2][kStride]
+    PeakSmem& ps = *reinterpret_cast<PeakSmem*>(xs + 2 * 2 * kStride);
     // Tap q: (re, im, shift, 0), zero-padded to kTaps.
     __shared__ float4 tap_s[kTaps];
 
@@ -192,6 +357,8 @@ overlap_spectra_kernel(const float2* __restrict__ g,
     for (int b = b0; b < b1; b += 2) {
         hopper::cp_async_wait<kSlots - kR - 1>();   // rows up to b + 8
         __syncthreads();
+        // The last pair's ranks are taken: its peak counts start anew.
+        if (kPeaks && t == 0) ps.count[0] = ps.count[1] = 0;
         // X_b and X_b+1 down this thread's columns: j ascending, as the
         // plain version sums.
         const float2* row[kR + 1];
@@ -227,14 +394,15 @@ overlap_spectra_kernel(const float2* __restrict__ g,
         c[1] = c0 + t;
         c0 -= s1;
         if (c0 < 0) c0 += f;
-        if (e0 + t >= span) continue;
+        const bool inside = e0 + t < span;
+        if (!kPeaks && !inside) continue;
         bool emit[2];
         int lo[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             if (c[h] >= f) c[h] = f >= kBand ? c[h] - f : c[h] % f;
             lo[h] = c[h] >= k;                 // the hi side of bin c - K
-            emit[h] = b + h < b1 && (!lo[h] || f == 2 * k);
+            emit[h] = inside && b + h < b1 && (!lo[h] || f == 2 * k);
             if (lo[h]) c[h] -= k;
         }
         // The window along e, taps ascending, both hops and sides at once.
@@ -245,28 +413,34 @@ overlap_spectra_kernel(const float2* __restrict__ g,
             window_tap<kStride>(xw, col, tap_s[q], q == 0);
         if (ntaps == kTaps)
             window_tap<kStride>(xw, col, tap_s[kTaps - 1], false);
+        if constexpr (!kPeaks) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            if (!emit[h]) continue;
-            const float2* xh = col + h * 2 * kStride;
-            const float m0 = cmag(xh[0]), m1 = cmag(xh[kStride]);
-            const float w0 = cmag(xw[h][0]), w1 = cmag(xw[h][1]);
-            const float mlo = lo[h] ? m1 : m0, mhi = lo[h] ? m0 : m1;
-            const float wlo = lo[h] ? w1 : w0, whi = lo[h] ? w0 : w1;
-            const long long o = (lane * hops + b + h) * (long long)k + c[h];
-            fa[o] = __fadd_rn(mlo, mhi);
-            hs[o] = fmaxf(mlo, mhi);
-            faw[o] = __fadd_rn(wlo, whi);
+            for (int h = 0; h < 2; ++h) {
+                if (!emit[h]) continue;
+                const float2* xh = col + h * 2 * kStride;
+                const float m0 = cmag(xh[0]), m1 = cmag(xh[kStride]);
+                const float w0 = cmag(xw[h][0]), w1 = cmag(xw[h][1]);
+                const float mlo = lo[h] ? m1 : m0, mhi = lo[h] ? m0 : m1;
+                const float wlo = lo[h] ? w1 : w0, whi = lo[h] ? w0 : w1;
+                const long long o = (lane * hops + b + h) * (long long)k +
+                                    c[h];
+                out.fa[o] = __fadd_rn(mlo, mhi);
+                out.hs[o] = fmaxf(mlo, mhi);
+                out.faw[o] = __fadd_rn(wlo, whi);
+            }
+        } else {
+            peak_step<kStride, kMode>(ps, out, xw, col, tap_s, ntaps, emit,
+                                      c, b, b1, lane, hops, f, k);
         }
     }
     hopper::cp_async_wait<0>();
 }
 
-template <int kCols>
+template <int kCols, int kMode>
 int launch(const float2* g, const float2* rho_period, const int* shifts,
-           const float2* taps, float* fa, float* faw, float* hs, int lanes,
-           int rows_g, int hops, int f, int k, int s1, int period, int ntaps,
-           int hp, cudaStream_t stream) {
+           const float2* taps, const Out& out, int lanes, int rows_g,
+           int hops, int f, int k, int s1, int period, int ntaps, int hp,
+           cudaStream_t stream) {
     const int span = f == 2 * k ? k : f;
     const int bands = (span + kBand - 1) / kBand;
     const long long per_run = (long long)bands * lanes;
@@ -274,32 +448,26 @@ int launch(const float2* g, const float2* rho_period, const int* shifts,
     const int run = (int)((hops + runs_want - 1) / runs_want);
     const int runs = (hops + run - 1) / run;
     const size_t smem =
-        (size_t)(kSlots + 2) * 2 * stride_of<kCols>() * sizeof(float2);
+        (size_t)(kSlots + 2) * 2 * stride_of<kCols>() * sizeof(float2) +
+        (kMode != kSpectra ? sizeof(PeakSmem) : 0);
     cudaError_t err = cudaFuncSetAttribute(
-        overlap_spectra_kernel<kCols>,
+        overlap_spectra_kernel<kCols, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(bands, runs, lanes);
-    overlap_spectra_kernel<kCols><<<grid, kThreads, smem, stream>>>(
-        g, rho_period, shifts, taps, fa, faw, hs, rows_g, hops, f, k, s1,
-        period, ntaps, hp, run);
+    overlap_spectra_kernel<kCols, kMode><<<grid, kThreads, smem, stream>>>(
+        g, rho_period, shifts, taps, out, rows_g, hops, f, k, s1, period,
+        ntaps, hp, run);
     return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// sigma1 = sigma_1 mod F; halo = the largest |window shift|.  The plan's
-// sigma_j must be j sigma1 mod F (the wrapper checks it).  Band + 2 halo
-// up to 384 columns takes the 3-column instance, up to 512 the 4-column
-// one.
-extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
-                                   const int* shifts, const float* taps,
-                                   float* fa, float* faw, float* hs,
-                                   int lanes, int rows_g, int hops, int f,
-                                   int k, int sigma1, int period, int ntaps,
-                                   int halo, void* stream) {
-    if (lanes <= 0 || hops <= 0) return 0;
-    const int hp = halo + (halo & 1);          // even: 16-byte copies
+// Checks the geometry and launches the instance for band + 2 hp columns:
+// up to 384 the 3-column one, up to 512 the 4-column one.
+template <int kMode>
+int launch_walk(const float* g, const float* rho_period, const int* shifts,
+                const float* taps, const Out& out, int lanes, int rows_g,
+                int hops, int f, int k, int sigma1, int period, int ntaps,
+                int halo, int hp, void* stream) {
     const int width = kBand + 2 * hp;
     const int cols = width <= stride_of<3>() ? 3 : 4;
     const int stride = cols == 3 ? stride_of<3>() : stride_of<4>();
@@ -308,10 +476,65 @@ extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
         sigma1 % period || (f - k) % period || sigma1 < 0 || sigma1 >= f ||
         stride % period || width > stride)
         return cudaErrorInvalidValue;
-    auto* fn = cols == 3 ? launch<3> : launch<4>;
+    auto* fn = cols == 3 ? launch<3, kMode> : launch<4, kMode>;
     return fn(reinterpret_cast<const float2*>(g),
               reinterpret_cast<const float2*>(rho_period), shifts,
-              reinterpret_cast<const float2*>(taps), fa, faw, hs, lanes,
-              rows_g, hops, f, k, sigma1, period, ntaps, hp,
+              reinterpret_cast<const float2*>(taps), out, lanes, rows_g,
+              hops, f, k, sigma1, period, ntaps, hp,
               (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// sigma1 = sigma_1 mod F; halo = the largest |window shift|.  The plan's
+// sigma_j must be j sigma1 mod F (the wrapper checks it).  K5's halo is
+// rounded up to even (16-byte copies).
+extern "C" int grl_overlap_spectra(const float* g, const float* rho_period,
+                                   const int* shifts, const float* taps,
+                                   float* fa, float* faw, float* hs,
+                                   int lanes, int rows_g, int hops, int f,
+                                   int k, int sigma1, int period, int ntaps,
+                                   int halo, void* stream) {
+    if (lanes <= 0 || hops <= 0) return 0;
+    const Out out = {fa, faw, hs, nullptr, nullptr, 1, 0.0f};
+    return launch_walk<kSpectra>(g, rho_period, shifts, taps, out, lanes,
+                              rows_g, hops, f, k, sigma1, period, ntaps,
+                              halo, halo + (halo & 1), stream);
+}
+
+// K2: the walk's peak instance, then the merge.  lists: [lanes * hops,
+// bands, m] (bands = ceil(span / 256)); pairs: [lanes * hops, bands, 2] at
+// p = 2, [lanes * hops, 1, 2] else.  At p != 2 the halo is one column
+// wider than K5's, for the band's outer neighbours, and even.
+extern "C" int grl_overlap_peaks(const float* g, const float* rho_period,
+                                 const int* shifts, const float* taps,
+                                 void* lists, void* pairs, int* bins,
+                                 float* h, float* h_single, uint8_t* valid,
+                                 int lanes, int rows_g, int hops, int f,
+                                 int k, int sigma1, int period, int ntaps,
+                                 int halo, int m, float threshold,
+                                 void* stream) {
+    if (lanes <= 0 || hops <= 0) return 0;
+    if (m < 1 || m > peaks::kMaxM || k < 3 || pairs == nullptr)
+        return cudaErrorInvalidValue;
+    const Out out = {nullptr, nullptr, nullptr,
+                     static_cast<peaks::Cand*>(lists),
+                     static_cast<peaks::Cand*>(pairs), m, threshold};
+    const bool wrap = f != 2 * k;
+    const int span = wrap ? f : k;
+    const int bands = (span + kBand - 1) / kBand;
+    const int wide = halo + 1;
+    const int err =
+        wrap ? launch_walk<kHaloEdges>(g, rho_period, shifts, taps, out,
+                                       lanes, rows_g, hops, f, k, sigma1,
+                                       period, ntaps, halo,
+                                       wide + (wide & 1), stream)
+             : launch_walk<kBandPairs>(g, rho_period, shifts, taps, out,
+                                       lanes, rows_g, hops, f, k, sigma1,
+                                       period, ntaps, halo,
+                                       halo + (halo & 1), stream);
+    if (err) return err;
+    return peaks::launch_merge(out.lists, bands, out.pairs, wrap ? 1 : bands,
+                               (long long)lanes * hops, m, bins, h, h_single,
+                               valid, (cudaStream_t)stream);
 }

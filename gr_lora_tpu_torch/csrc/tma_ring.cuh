@@ -69,14 +69,17 @@ __device__ __forceinline__ Ring make(unsigned char* raw,
     return r;
 }
 
-// The producer thread: every stage of every tile of this block's units.
-// load(u, t, kb, dst, bar) starts stage kb of tile t of unit u into `dst`,
-// stage_bytes of TMA loads completing on `bar`.
-template <class Load>
-__device__ __forceinline__ void produce(const Ring& r, long long units,
-                                        int sweep, int kblocks, Load&& load) {
+// The producer thread: every stage of every tile of this block's units,
+// sweep_of(u) tiles for unit u.  load(u, t, kb, dst, bar) starts stage kb
+// of tile t of unit u into `dst`, stage_bytes of TMA loads completing on
+// `bar`.
+template <class SweepOf, class Load>
+__device__ __forceinline__ void produce_units(const Ring& r, long long units,
+                                              SweepOf&& sweep_of, int kblocks,
+                                              Load&& load) {
     int it = 0;
-    for (long long u = blockIdx.x; u < units; u += gridDim.x)
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const int sweep = sweep_of(u);
         for (int t = 0; t < sweep; ++t)
             for (int kb = 0; kb < kblocks; ++kb, ++it) {
                 const int s = it % kStages;
@@ -84,6 +87,15 @@ __device__ __forceinline__ void produce(const Ring& r, long long units,
                 hopper::mbar_expect_tx(&r.full[s], r.stage_bytes);
                 load(u, t, kb, r.stage(s), &r.full[s]);
             }
+    }
+}
+
+// produce_units with `sweep` tiles a unit.
+template <class Load>
+__device__ __forceinline__ void produce(const Ring& r, long long units,
+                                        int sweep, int kblocks, Load&& load) {
+    produce_units(r, units, [sweep](long long) { return sweep; }, kblocks,
+                  load);
 }
 
 // A consumer warpgroup: the kblocks stages of its next tile (`it` counts

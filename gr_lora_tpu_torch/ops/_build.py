@@ -44,7 +44,9 @@ _F = ctypes.c_float
 #: C signature of each kernel entry point (all return int).
 SIGNATURES = {
     "grl_rdft_spectra": [_P] * 7 + [_I] * 6 + [_P],
+    "grl_rdft_peaks": [_P] * 10 + [_I] * 7 + [_F, _P],
     "grl_overlap_spectra": [_P] * 7 + [_I] * 9 + [_P],
+    "grl_overlap_peaks": [_P] * 10 + [_I] * 10 + [_F, _P],
     "grl_direct_spectra": [_P] * 6 + [_I] * 6 + [_P],
     "grl_direct_peaks": [_P] * 7 + [_I] * 7 + [_F, _P],
     "grl_peak_topm": [_P] * 7 + [_LL, _I, _I, _F, _P],

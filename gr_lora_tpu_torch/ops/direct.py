@@ -43,7 +43,8 @@ from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .chirp import chirp_tables
 from .dechirp import frame_signal, kaiser_window
-from .peak_epilogue import launch_topm, peaks_plain
+from .peak_epilogue import (FUSED_MAX_PEAKS, launch_topm, peaks_plain,
+                            top_candidates)
 from .rdft_spectra import bf16_matmul
 
 _R = PYRAMID_OVERLAP_FACTOR
@@ -54,8 +55,6 @@ TILE_BINS = 16
 FRAME_TILE = 128
 BIN_TILE = 32
 BOX = 32
-#: The largest M of K4's fused peak search (its lists in shared memory).
-FUSED_MAX_PEAKS = 16
 
 
 @lru_cache(maxsize=4)
@@ -315,14 +314,9 @@ def tile_spectra(a: torch.Tensor, w: torch.Tensor):
 
 def _merge(lists, cands, max_peaks):
     """Each row's top-M of its list and its new candidates, (faw, bin, fa,
-    hs) [R, *], by the kernel's order: larger value first, lower bin on a
-    tie (non-candidates hold -inf)."""
-    v, b, h, s = (torch.cat([x, y], dim=1) for x, y in zip(lists, cands))
-    order = torch.argsort(b, dim=1, stable=True)
-    order = order.gather(1, torch.argsort(v.gather(1, order), dim=1,
-                                          descending=True, stable=True))
-    keep = order[:, :max_peaks]
-    return tuple(x.gather(1, keep) for x in (v, b, h, s))
+    hs) [R, *], by the kernel's order."""
+    return top_candidates(*(torch.cat([x, y], dim=1)
+                            for x, y in zip(lists, cands)), max_peaks)
 
 
 def sweep_peaks(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,

@@ -71,8 +71,10 @@ class OverlapSpectra(nn.Module):
     def plain_from_chunks(self, g: torch.Tensor):
         return spectra_from_chunks(g, self.plan, self.num_hops)
 
-    def kernel(self, g: torch.Tensor):
-        """Kernel (fa, faw, hs) [..., H, K] for a CUDA G (not counted)."""
+    def launch_args(self, g: torch.Tensor):
+        """(G [lanes, rows, F, 2] contiguous, its leading shape, the C
+        arguments from the plan through ``halo``) for a launch of the
+        walk; raises on what the kernel does not take."""
         if (not g.is_cuda or g.dtype != torch.float32 or g.shape[-1] != 2
                 or g.shape[-2] != self.f
                 or g.shape[-3] < self.num_hops + _R - 1):
@@ -85,20 +87,24 @@ class OverlapSpectra(nn.Module):
         s1 = p.sigma_list[1]
         if any(s != j * s1 % self.f for j, s in enumerate(p.sigma_list)):
             raise ValueError(f"sigma is not j sigma_1 mod F: {p.sigma_list}")
-        lead = g.shape[:-3]
         x = g.reshape(-1, *g.shape[-3:]).contiguous()
-        lanes, rows = x.shape[0], x.shape[1]
-        out = torch.empty((3, lanes, self.num_hops, self.k),
+        args = (x.data_ptr(), p.rho_period.data_ptr(),
+                p.win_shifts.data_ptr(), p.win_taps.data_ptr())
+        geometry = (x.shape[0], x.shape[1], self.num_hops, self.f, self.k,
+                    s1, p.period, p.win_taps.shape[0], self.halo)
+        return x, g.shape[:-3], args, geometry
+
+    def kernel(self, g: torch.Tensor):
+        """Kernel (fa, faw, hs) [..., H, K] for a CUDA G (not counted)."""
+        x, lead, args, geometry = self.launch_args(g)
+        out = torch.empty((3, x.shape[0], self.num_hops, self.k),
                           dtype=torch.float32, device=g.device)
         fa, faw, hs = out[0], out[1], out[2]
         lib = _build.library()
         with torch.cuda.device(g.device):
             err = lib.grl_overlap_spectra(
-                x.data_ptr(), p.rho_period.data_ptr(),
-                p.win_shifts.data_ptr(), p.win_taps.data_ptr(),
-                fa.data_ptr(), faw.data_ptr(), hs.data_ptr(), lanes, rows,
-                self.num_hops, self.f, self.k, s1, p.period,
-                p.win_taps.shape[0], self.halo, _build.stream_of(x))
+                *args, fa.data_ptr(), faw.data_ptr(), hs.data_ptr(),
+                *geometry, _build.stream_of(x))
         _build.check("grl_overlap_spectra", err)
         shape = (*lead, self.num_hops, self.k)
         return fa.reshape(shape), faw.reshape(shape), hs.reshape(shape)

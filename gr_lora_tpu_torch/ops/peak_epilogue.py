@@ -12,6 +12,12 @@ launches the hand-written kernel (``csrc/peak_topm.cu``) and is called by
 the kernel wrappers on CUDA tensors only.  :func:`compare_peaks` holds one
 peak lattice's output against another's (a kernel against its plain
 version, or the port against the JAX package).
+
+The fused lattices (K1, K2, K4) search their peaks inside the product's
+epilogue and take M <= :data:`FUSED_MAX_PEAKS`.  K1 and K2 leave per-tile
+candidate lists and the deferred edge bins of each tile; one merge kernel
+(``csrc/peak_topm.cu`` ``peak_merge_kernel``) reduces them to the row's
+top M.  :func:`merge_peaks` is that merge in plain torch.
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ import numpy as np
 import torch
 
 from . import _build
+
+#: The largest M of the fused peak searches (K1, K2 and K4); a larger M
+#: runs the lattice's dense front end and ``peak_topm``.
+FUSED_MAX_PEAKS = 16
 
 
 def peaks_plain(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
@@ -68,6 +78,52 @@ def launch_topm(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
             max_peaks, float(threshold), _build.stream_of(faw))
     _build.check("grl_peak_topm", err)
     return bins, h, h_single, valid
+
+
+def top_candidates(v, b, h, s, max_peaks: int):
+    """The best ``max_peaks`` of candidates (faw, bin, fa, hs) along the
+    last dim, in the kernels' list order (value descending, ties to the
+    lower bin; a non-candidate holds faw -inf), padded with empty slots."""
+    if v.shape[-1] < max_peaks:
+        pad = max_peaks - v.shape[-1]
+        v = torch.nn.functional.pad(v, (0, pad), value=-torch.inf)
+        b, h, s = (torch.nn.functional.pad(x, (0, pad)) for x in (b, h, s))
+    order = torch.argsort(b, dim=-1, stable=True)
+    order = order.gather(-1, torch.argsort(v.gather(-1, order), dim=-1,
+                                           descending=True, stable=True))
+    keep = order[..., :max_peaks]
+    return tuple(x.gather(-1, keep) for x in (v, b, h, s))
+
+
+def merge_peaks(lists, pairs, max_peaks: int):
+    """The fused lattices' merge in plain torch: each row's top M of its
+    candidate lists and its resolved edge bins.
+
+    ``lists`` is (faw, bin, fa, hs), each [..., L, S]: per row L lists of
+    confirmed peaks, an empty slot holding faw -inf.  ``pairs`` is None or
+    (faw, bin, fa, hs), each [..., P, 2]: two neighbouring edge bins that
+    two tiles deferred, each with its bin where its test against the
+    threshold and its neighbour inside its own tile passed, else -1.  An
+    edge bin is a peak where that test passed and its value exceeds the
+    other entry's (its neighbour across the tile edge).  Returns (bins
+    int32, h, h_single, valid), each [..., M], in ``peaks_plain``'s order
+    (value descending, ties to the lower bin)."""
+    lead = lists[0].shape[:-2]
+    v, b, h, s = (x.reshape(*lead, -1) for x in lists)
+    b = b.to(torch.int64)
+    if pairs is not None:
+        pv, pb, ph, ps = pairs
+        ok = (pb >= 0) & (pv > pv.flip(-1))
+        ninf = torch.full_like(pv, -torch.inf)
+        v = torch.cat([v, torch.where(ok, pv, ninf).reshape(*lead, -1)], -1)
+        b = torch.cat([b, pb.to(torch.int64).reshape(*lead, -1)], -1)
+        h = torch.cat([h, ph.reshape(*lead, -1)], -1)
+        s = torch.cat([s, ps.reshape(*lead, -1)], -1)
+    v, b, h, s = top_candidates(v, b, h, s, max_peaks)
+    valid = torch.isfinite(v)
+    zero = torch.zeros((), dtype=h.dtype)
+    return (torch.where(valid, b, 0).to(torch.int32),
+            torch.where(valid, h, zero), torch.where(valid, s, zero), valid)
 
 
 def _host(x) -> np.ndarray:

@@ -173,8 +173,10 @@ class RdftSpectra(nn.Module):
         m2, m3 = recombine(dot(ur * win), dot(ui * win))
         return m0 + m1, m2 + m3, torch.maximum(m0, m1)
 
-    def kernel(self, iq: torch.Tensor):
-        """Kernel (fa, faw, hs) [..., H, K] for a CUDA iq (not counted)."""
+    def launch_args(self, iq: torch.Tensor):
+        """(iq [lanes, T, 2] contiguous, its leading shape, the A tiles
+        scratch) for a kernel launch; raises on what the kernel does not
+        take."""
         if not iq.is_cuda or iq.dtype != torch.float32 or iq.shape[-1] != 2:
             raise ValueError("the rDFT kernel takes CUDA float32 [..., T, 2]")
         if self.w_tiles.device != iq.device:
@@ -184,12 +186,17 @@ class RdftSpectra(nn.Module):
             raise RuntimeError(
                 f"the rDFT kernel needs n a multiple of 32 and K a multiple "
                 f"of {2 * PAIR}: n {self.n}, K {self.k}")
-        lead = iq.shape[:-2]
         x = iq.reshape(-1, iq.shape[-2], 2).contiguous()
-        lanes, t_len = x.shape[0], x.shape[1]
         tiles = -(-self.num_frames // FRAME_TILE)
-        a = torch.empty((lanes, tiles, 2, 2 * FRAME_TILE, _npad(self.n)),
-                        dtype=torch.bfloat16, device=iq.device)
+        a = torch.empty((x.shape[0], tiles, 2, 2 * FRAME_TILE,
+                         _npad(self.n)), dtype=torch.bfloat16,
+                        device=iq.device)
+        return x, iq.shape[:-2], a
+
+    def kernel(self, iq: torch.Tensor):
+        """Kernel (fa, faw, hs) [..., H, K] for a CUDA iq (not counted)."""
+        x, lead, a = self.launch_args(iq)
+        lanes, t_len = x.shape[0], x.shape[1]
         out = torch.empty((3, lanes, self.num_frames, self.k),
                           dtype=torch.float32, device=iq.device)
         fa, faw, hs = out[0], out[1], out[2]

@@ -7,9 +7,10 @@ tests/test_torch_kernels_cuda.py`` (the file imports no JAX; the repo's
 conftest.py does, and such a machine need not have it).
 
 Shapes beyond the always-on main path: K5 and K2 at fft_factor 16 (the
-wider ring), peak_topm and K4 at M > 16 (K4 then runs K4b and
-peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples) and on ragged frame
-counts.
+wider ring), peak_topm, K1, K2 and K4 at M > 16 (each then runs its
+dense front end and peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples)
+and on ragged frame counts.  K1's, K2's and K4's fused searches keep
+their peak allocation below one dense [lanes, hops, K] f32 array.
 
 Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
@@ -77,40 +78,68 @@ def _lanes(cfg, lanes, seed):
     return np.stack(out), total
 
 
+def _dense_bytes(lanes, hops, k):
+    return 4 * lanes * hops * k
+
+
+def _peak_alloc(dev, fn):
+    """(fn's result, the bytes it allocated at its peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+@pytest.mark.parametrize("m", [8, 16, 17])
 @pytest.mark.parametrize("sf,ff", [(7, 8), (8, 8), (9, 8), (7, 2)])
-def test_rdft_kernel_matches_plain(dev, sf, ff):
+def test_rdft_kernel_matches_plain(dev, sf, ff, m):
+    """K1: the fused search (M <= 16; at ff 8 its peak allocation stays
+    below one dense [lanes, hops, K] f32 array) or, above 16, K3 and
+    peak_topm (counted as K3's launch)."""
     cfg = _cfg(sf, ff)
     iq, total = _lanes(cfg, 3, sf)
     nh = num_hops_for(cfg, total)
-    mod = RdftPeaks(cfg, nh, 8).to(dev)
+    mod = RdftPeaks(cfg, nh, m).to(dev)
     x = torch.from_numpy(iq).to(dev)
-    kern = mod(x)
-    assert mod.launches == 1
+    kern, alloc = _peak_alloc(dev, lambda: mod(x))
+    fused = m <= 16
+    assert (mod.launches, mod.front.launches) == ((1, 0) if fused else (0, 1))
+    if fused and ff == 8:
+        assert alloc < _dense_bytes(3, nh, cfg.bin_size), alloc
     plain = mod.plain(x)
     _, faw, _ = mod.front.plain(x)
-    assert plain[3].any()
+    assert plain[3].any() and kern[0].shape[-1] == m
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
 
 
+@pytest.mark.parametrize("m", [8, 16, 17])
 @pytest.mark.parametrize("sf,ff,p", [(10, 8, 2), (12, 8, 2), (10, 1, 4),
                                      (7, 16, 2)])
-def test_overlap_kernel_matches_plain(dev, sf, ff, p):
+def test_overlap_kernel_matches_plain(dev, sf, ff, p, m):
     """The kernel rounds every operation as the plain version does, in its
     order: folds and peaks are equal bit for bit.  Includes p = 4, where
     the fold's hi side c + F - K is not c + K (the JAX kernel's tile
-    arithmetic assumes F = 2K)."""
+    arithmetic assumes F = 2K) and bins 0 and K - 1 are the merge's.  M <=
+    16 runs the fused search (at p = 2 its peak allocation stays below one
+    dense [lanes, hops, K] f32 array), 17 K5 and peak_topm (counted as
+    K5's launch)."""
     cfg = _cfg(sf, ff, p)
     iq, total = _lanes(cfg, 2, sf)
     nh = min(num_hops_for(cfg, total), 128)
-    mod = OverlapPeaks(cfg, nh, 8).to(dev)
+    mod = OverlapPeaks(cfg, nh, m).to(dev)
     g = mod.plan.chunk_dft(torch.from_numpy(iq).to(dev), nh)
     for a, b in zip(mod.front.kernel(g),
                     spectra_from_chunks(g, mod.plan, nh)):
         assert torch.equal(a, b), float(torch.max(torch.abs(a - b)))
-    kern = mod.from_chunks(g)
-    assert mod.launches == 1
+    kern, alloc = _peak_alloc(dev, lambda: mod.from_chunks(g))
+    fused = m <= 16
+    assert (mod.launches, mod.front.launches) == ((1, 0) if fused else (0, 1))
+    if fused and p == 2:
+        assert alloc < _dense_bytes(2, nh, cfg.bin_size), alloc
     plain = mod.plain_from_chunks(g)
-    assert plain[3].any()
+    assert plain[3].any() and kern[0].shape[-1] == m
     for a, b in zip(kern, plain):
         assert torch.equal(a, b)
 
@@ -155,6 +184,12 @@ def test_kernel_wrappers_reject_bad_input(dev):
             mod.to(dev)(x)
     with pytest.raises(ValueError, match="max_peaks"):
         DirectPeaks(cfg, 16, 17).to(dev).kernel(x)
+    # K1's and K2's fused searches take M <= 16 too.
+    with pytest.raises(ValueError, match="max_peaks"):
+        RdftPeaks(cfg, 16, 17).to(dev).kernel(x)
+    with pytest.raises(ValueError, match="max_peaks"):
+        OverlapPeaks(cfg, 16, 17).to(dev).kernel(
+            torch.zeros((23, cfg.fft_size, 2), device=dev))
 
 
 def _dense_close(kern, plain, rtol):
