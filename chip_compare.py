@@ -1,5 +1,5 @@
-"""Time the lattice kernels and P1 of two trees of the repo in turns, on
-one NVIDIA GPU.
+"""Time the lattice kernels, P1 and P2 of two trees of the repo in turns,
+on one NVIDIA GPU.
 
     python3 chip_compare.py PARENT_TREE [CHANGE_TREE]
 
@@ -15,7 +15,9 @@ windows (8 lanes), each whole and as the unfused pair (its dense front
 end, K3's or K5's kernel, and peak_topm on what that wrote); then, on
 chip_smoke.py's always-on block (16 channels x 2048 hops at SF8 x ff
 8), K5 on the block's chunk spectra (first, before the others
-allocate), K3, K4b and K6; then P1 at the main dot shape.  Prints each run's JSON line, then the parent's and the change's
+allocate), K3, K4b and K6; then P1 at the main dot shape, and P2's three
+kinds (``mxu``, ``vpu``, ``both``, 64 steps x 2 rounds) at the same
+shape.  Prints each run's JSON line, then the parent's and the change's
 times side by side with the card's name and power limit.  Needs a CUDA
 device; imports nothing of JAX.
 """
@@ -56,8 +58,8 @@ def one(tree: str) -> dict:
     from gr_lora_tpu_torch.ops.direct import DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm
-    from gr_lora_tpu_torch.ops.probes import MAIN_SHAPE, RateProbe, \
-        probe_inputs
+    from gr_lora_tpu_torch.ops.probes import (MAIN_SHAPE, OverlapProbe,
+                                              RateProbe, probe_inputs)
     from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,10 +131,14 @@ def one(tree: str) -> dict:
                 lambda: mod.kernel(x8), ITERS)
             del mod
             torch.cuda.empty_cache()
-        x, w, _ = (t.to(dev) for t in probe_inputs(*MAIN_SHAPE))
+        x, w, v0 = (t.to(dev) for t in probe_inputs(*MAIN_SHAPE))
         p1 = RateProbe()
         ms[f"P1 {list(MAIN_SHAPE)}"] = smoke._time_ms(lambda: p1(x, w),
                                                        2 * ITERS)
+        for kind in ("mxu", "vpu", "both"):
+            p2 = OverlapProbe(kind)
+            ms[f"P2 {kind} {list(MAIN_SHAPE)}"] = smoke._time_ms(
+                lambda: p2(x[0], w, v0), 2 * ITERS)
     return {"tree": tree, "card": card, "ms": ms}
 
 

@@ -1,5 +1,5 @@
 // The persistent TMA + wgmma ring of the product kernels: K4b, K4 and K6
-// (direct_spectra.cu), K3 (rdft_spectra.cu) and P1 (probes.cu).
+// (direct_spectra.cu), K3 (rdft_spectra.cu), P1 and P2 (probes.cu).
 //
 // A block of kThreads = 384 runs two consumer warpgroups (0, 1) and one
 // producer warpgroup (2), of which one thread starts every TMA load.  A
@@ -98,13 +98,21 @@ __device__ __forceinline__ void produce(const Ring& r, long long units,
                   load);
 }
 
+// What runs beside a stage's products unless the caller says otherwise.
+struct Idle {
+    __device__ void operator()(int) const {}
+};
+
 // A consumer warpgroup: the kblocks stages of its next tile (`it` counts
 // the stages it has taken).  mma(src, kb) issues stage kb's wgmmas on the
-// buffer `src`; a stage is freed once the group after it is issued.  On
-// return every wgmma of the tile has retired.
-template <class Mma>
+// buffer `src`; a stage is freed once the group after it is issued.
+// beside(kb) runs once stage kb's group is committed, while it and the
+// group before it are in flight: CUDA-core work that must not touch the
+// accumulators.  On return every wgmma of the tile has retired.
+template <class Mma, class Beside = Idle>
 __device__ __forceinline__ void consume(const Ring& r, int& it, int kblocks,
-                                        bool elected, Mma&& mma) {
+                                        bool elected, Mma&& mma,
+                                        Beside&& beside = Beside()) {
     int prev = 0;
     for (int kb = 0; kb < kblocks; ++kb, ++it) {
         const int s = it % kStages;
@@ -112,6 +120,7 @@ __device__ __forceinline__ void consume(const Ring& r, int& it, int kblocks,
         hopper::wgmma_fence();
         mma(r.stage(s), kb);
         hopper::wgmma_commit();
+        beside(kb);
         // The group before this one is done: free its stage.
         hopper::wgmma_wait<1>();
         if (kb > 0 && elected) hopper::mbar_arrive(&r.empty[prev]);

@@ -13,8 +13,11 @@
   chain :func:`chain_round` ``rounds`` times over a [rows, 1280] slab
   (``"vpu"``), or both (``"both"``); the output [1, 1] is
   ``scratch[0, 0] + slab[0, 0]`` (0 for the scratch where no product ran).
-  It asks whether WMMA products and an independent FP32 chain on the CUDA
-  cores overlap in one kernel.
+  It asks whether the products P1 runs (``wgmma`` + TMA) retire while an
+  independent f32 chain runs on the CUDA cores of the same SMs: the chain
+  runs between a stage's commit and its wait, paced over the stages
+  (:func:`overlap_grid`, :func:`chain_split`).  The kernel takes P1's
+  tile multiples (:data:`TILE`).
 
 Each step repeats the same products, so each plain version computes them
 once.  On a CPU tensor the probes run their plain versions; on a CUDA
@@ -33,10 +36,16 @@ from .rdft_spectra import bf16_matmul
 
 #: The main path's dot shape (rows, depth, width) at SF8 x ff 8.
 MAIN_SHAPE = (256, 512, 4352)
-#: P1's tile (rows, depth, width): every shape it takes is a multiple.
+#: P1's and P2's tile (rows, depth, width): every shape they take is a
+#: multiple.
 TILE = (128, 64, 256)
 #: P2's chain slab width (tools/overlap_probe.py).
 SLAB_COLS = 1280
+#: P2's chain elements a consumer thread holds, at most, and the consumer
+#: threads of a block (two warpgroups): copies of ``kChainPer`` and
+#: ``kConsumers`` in ``csrc/probes.cu``, which must change with them.
+CHAIN_PER = 10
+CHAIN_THREADS = 256
 _KINDS = {"mxu": 1, "vpu": 2, "both": 3}
 
 
@@ -52,6 +61,32 @@ def probe_inputs(rows: int, depth: int, width: int, batch: int = 4,
     v0 = rng.uniform(0.5, 1.5, (rows, SLAB_COLS)).astype(np.float32)
     return (torch.from_numpy(x).to(torch.bfloat16),
             torch.from_numpy(w).to(torch.bfloat16), torch.from_numpy(v0))
+
+
+def overlap_grid(units: int, slab: int, sms: int) -> int:
+    """P2's grid for ``units`` (step, tile) units and a ``slab``-element
+    chain on ``sms`` SMs: one block an SM for the units, more where the
+    slab needs them (block b holds elements b 256 + t + i 256 grid, i <
+    :data:`CHAIN_PER`)."""
+    per = CHAIN_PER * CHAIN_THREADS
+    return max(min(units, sms), -(-slab // per))
+
+
+def chain_split(block: int, grid: int, units: int, kblocks: int,
+                total: int) -> tuple[list[int], int]:
+    """The rounds of P2's chain that ``block`` runs beside each of its
+    stages (``kblocks`` a unit, units block, block + grid, ...) and after
+    its last, ``total`` in all: after s of the smax stages of the
+    busiest block, total s // smax have run (``csrc/probes.cu``'s
+    pacing)."""
+    mine = (units - 1 - block) // grid + 1 if block < units else 0
+    smax = -(-units // grid) * kblocks
+    per, acc = [], 0
+    for _ in range(mine * kblocks):
+        acc += total
+        per.append(acc // smax)
+        acc %= smax
+    return per, total - sum(per)
 
 
 def chain_round(a: torch.Tensor) -> torch.Tensor:
@@ -163,11 +198,14 @@ class OverlapProbe:
                              "CUDA float32 slab on x's device")
         rows, depth = x.shape
         width = w.shape[1]
+        if any(n % t for n, t in zip((rows, depth, width), TILE)):
+            raise ValueError(f"P2 takes (rows, depth, width) in multiples of "
+                             f"{TILE}: {(rows, depth, width)}")
         mxu, vpu = self.kind != "vpu", self.kind != "mxu"
         scratch = torch.empty((rows, width), dtype=torch.float32,
                               device=x.device) if mxu else None
         vs = torch.empty_like(v0) if vpu else v0
-        out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+        out = torch.zeros((1, 1), dtype=torch.float32, device=x.device)
         lib = _build.library()
         with torch.cuda.device(x.device):
             err = lib.grl_overlap_probe(

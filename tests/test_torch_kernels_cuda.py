@@ -471,6 +471,70 @@ def test_overlap_probe_matches_plain(dev, kind):
     assert probe.launches == 1
 
 
+def _slabs_agree(vs, ref_vs):
+    """NaN masks equal, every other entry (inf included) bit for bit."""
+    nan = torch.isnan(vs)
+    assert torch.equal(nan, torch.isnan(ref_vs))
+    assert torch.equal(vs[~nan], ref_vs[~nan])
+
+
+@pytest.mark.parametrize("kind", ["mxu", "vpu", "both"])
+def test_overlap_probe_full_steps_matches_plain(dev, kind):
+    """P2 as chip_smoke.py times it, 64 steps x 2 rounds: the chain leaves
+    the f32 range (inf, then NaN) everywhere, as the plain one does, so
+    this checks the NaN mask and the product; the pacing is checked bit
+    for bit at finite round counts (test_overlap_probe_paced_rounds)."""
+    x, w, v0 = (t.to(dev) for t in probe_inputs(256, 512, 4352, batch=1))
+    probe = OverlapProbe(kind)
+    out, acc, vs = probe.kernel(x[0], w, v0)
+    ref_out, ref_acc, ref_vs = probe.plain(x[0], w, v0)
+    _slabs_agree(vs, ref_vs)
+    if kind != "mxu":
+        assert not bool(torch.isfinite(vs).any())
+    if acc is not None:
+        torch.testing.assert_close(acc, ref_acc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, ref_out, rtol=1e-3, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["mxu", "vpu", "both"])
+def test_overlap_probe_chain_only_blocks(dev, kind):
+    """(128, 256, 1024) x 4 steps: 16 units, but the 163 840-element slab
+    needs 64 blocks, 48 of which run the chain only."""
+    x, w, v0 = (t.to(dev) for t in probe_inputs(128, 256, 1024, batch=1))
+    probe = OverlapProbe(kind, steps=4)
+    out, acc, vs = probe.kernel(x[0], w, v0)
+    ref_out, ref_acc, ref_vs = probe.plain(x[0], w, v0)
+    assert torch.equal(vs, ref_vs) and bool(torch.isfinite(vs).all())
+    if acc is not None:
+        torch.testing.assert_close(acc, ref_acc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, ref_out, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["vpu", "both"])
+@pytest.mark.parametrize("steps,rounds", [(6, 2), (13, 1)])
+def test_overlap_probe_paced_rounds(dev, kind, steps, rounds):
+    """The main shape at round counts that stay finite, so the slab
+    compares bit for bit: 204 and 442 units on the card's SMs (132 on an
+    H100), where blocks take unequal unit counts, pace fewer rounds than
+    stages and run the rest after their last stage."""
+    x, w, v0 = (t.to(dev) for t in probe_inputs(256, 512, 4352, batch=1))
+    probe = OverlapProbe(kind, steps=steps, rounds=rounds)
+    out, acc, vs = probe.kernel(x[0], w, v0)
+    ref_out, ref_acc, ref_vs = probe.plain(x[0], w, v0)
+    assert torch.equal(vs, ref_vs) and bool(torch.isfinite(vs).all())
+    if acc is not None:
+        torch.testing.assert_close(acc, ref_acc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, ref_out, rtol=1e-3, atol=1e-3)
+
+
+def test_overlap_probe_rejects_off_tile_shapes(dev):
+    for shape in ((192, 512, 4352), (256, 480, 4352), (256, 512, 4224)):
+        x, w, v0 = (t.to(dev) for t in probe_inputs(*shape, batch=1))
+        with pytest.raises(ValueError, match="multiples"):
+            OverlapProbe("both").kernel(x[0], w, v0)
+
+
 @pytest.mark.parametrize("backend", ["pallas", "fused"])
 def test_pyramid_demodulate_defaults_to_card(dev, backend):
     """With no device argument the collision decoder runs on the card."""

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from gr_lora_tpu_torch.ops.probes import (MAIN_SHAPE, OverlapProbe,
+from gr_lora_tpu_torch.ops.probes import (CHAIN_PER, CHAIN_THREADS,
+                                          MAIN_SHAPE, OverlapProbe,
                                           RateProbe, chain_round,
+                                          chain_split, overlap_grid,
                                           probe_inputs)
 
 
@@ -108,3 +110,32 @@ def test_chain_round_overflows_as_the_jax_chain_does():
 def test_overlap_probe_rejects_unknown_kind():
     with pytest.raises(ValueError):
         OverlapProbe("tensor")
+
+
+@pytest.mark.parametrize("units,kblocks,steps,slab", [
+    (16, 4, 4, 128 * 1280),          # (128, 256, 1024) x 4 steps
+    (2176, 8, 64, 256 * 1280),       # the main shape x 64 steps
+    (2177, 8, 64, 256 * 1280),
+])
+def test_overlap_chain_split_gives_every_element_all_rounds(units, kblocks,
+                                                            steps, slab):
+    """P2's grid on 132 SMs holds every slab element in exactly one
+    consumer thread, and every block runs exactly steps x rounds rounds:
+    paced over its stages, at most ceil(total / smax) a stage, the rest
+    after its last stage (none for the busiest blocks)."""
+    sms, total = 132, 2 * steps
+    grid = overlap_grid(units, slab, sms)
+    e = (np.arange(grid * CHAIN_THREADS)[:, None]
+         + np.arange(CHAIN_PER)[None, :] * grid * CHAIN_THREADS)
+    np.testing.assert_array_equal(np.sort(e[e < slab]), np.arange(slab))
+    smax = -(-units // grid) * kblocks
+    for block in range(grid):
+        per, end = chain_split(block, grid, units, kblocks, total)
+        mine = len(range(block, units, grid))
+        assert len(per) == mine * kblocks
+        assert sum(per) + end == total and end >= 0
+        assert all(0 <= n <= -(-total // smax) for n in per)
+        if len(per) == smax:
+            assert end == 0
+    if units > sms:                   # one round a stage, or none
+        assert max(chain_split(0, grid, units, kblocks, total)[0]) == 1
