@@ -5,7 +5,8 @@
 Three paths, on chip_smoke.py's fixtures:
 
 - north star: TriggeredPyramidGateway, 64 channels x SF7-12, backend
-  "fused" (K1, K2), 2^20 samples a channel a feed;
+  "fused" (K1, K2), 2^20 samples a channel a feed; then the same with
+  ``sic=True`` (models/sic on every window with a tracked packet);
 - always-on, once per kernel backend ("rdft": K3, "direct": K4b,
   "fused_direct": K4, "fastp": K5, "pallas": K6): PyramidGateway, 16
   channels, SF8 x ff 8, 2048-hop blocks, four blocks a pass, fed in
@@ -182,6 +183,13 @@ def main() -> None:
     with torch.no_grad():
         results["north_star_lattices"] = _lattices(gw, iq_dev, singles,
                                                    card)
+    gw = TriggeredPyramidGateway(base_config(), CHANNELS, sfs=SFS,
+                                 max_payload_len=16, backend="fused",
+                                 sic=True, device=dev)
+    results["north_star_sic"] = _profile(
+        f"north-star sic {CHANNELS}ch x SF7-12 fused", gw, iq_dev, card,
+        None)
+    results["north_star_sic"]["sic_windows"] = gw.sic_windows
     del gw, iq, iq_dev
     torch.cuda.empty_cache()
 

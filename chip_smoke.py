@@ -53,9 +53,19 @@ the final ``ok`` line):
    steps, where the chain is NaN everywhere: the slab's NaN mask equal
    and the product), then timed: P1's TFLOP/s beside torch.matmul's
    (cuBLAS) on the same bf16 operands, P2's three kinds, `vpu` over 4
-   steps (all finite) beside it, and its overlap efficiency.
+   steps (all finite) beside it, and its overlap efficiency;
+8. sic     — successive interference cancellation (models/sic): (a) the
+   collision-recovery envelope of bench.py --mode collision (SF8, 66
+   offset x ratio points) through pyramid_demodulate at grace 0 and 8
+   and sic_demodulate at backend "xla", then SIC at "fused" (K1 in its
+   dense passes): SIC must recover both packets at all 66 points at
+   either backend; (b) the Python tracker equal to the native one on the
+   golden collision; (c) phase 4's north star with ``sic=True``: every
+   golden PDU and single, every PDU phase 4 decoded, SIC windows run
+   (their wall, count and the K1 / K2 launches of SIC's own dense
+   passes printed).
 
-Phases 4-7 each assert what they check and that their kernels ran: every
+Phases 4-8 each assert what they check and that their kernels ran: every
 launch count is set to 0 just before a phase and read just after.  The
 line before the last is a JSON object with every kernel's route, source,
 the TPU kernel it replaces, launches, max |delta| against its plain
@@ -380,8 +390,9 @@ def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
     return out, alloc
 
 
-def main_path(gw, iq_dev, singles, card: str) -> dict:
-    """Phase 4: feed the fixture twice, flush, check the decodes."""
+def main_path(gw, iq_dev, singles, card: str):
+    """Phase 4: feed the fixture twice, flush, check the decodes.  Returns
+    (launches, the decoded {channel: {(sf, payload)}}, packet count)."""
     import torch
 
     from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
@@ -444,7 +455,7 @@ def main_path(gw, iq_dev, singles, card: str) -> dict:
           f"decode={w['decode']:.4f}] feed2_samples_per_s={sps:.1f} "
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
           f"launches={launches} k1_launches_by_sf={k1_launches}")
-    return launches
+    return launches, every, npk
 
 
 def _dense_check(name, kern, plain, rtol):
@@ -962,6 +973,211 @@ def probes(dev, card: str, report: dict, launches: dict) -> None:
         bound2))
 
 
+def envelope_grid(cfg):
+    """bench.py --mode collision's grid (:1130-1160): the strong packet
+    (amplitude 0.2) at sample 1000, the weak one (0.2 ratio) at 16
+    sub-symbol phases of a 16-symbol overlap (+13 samples), 2 hop-aligned
+    points and 4 depths (+204), times ratios {0.45, 0.3, 0.2}: 66 points
+    in one fixed buffer length.  Returns ([(ratio, weak offset)], strong
+    and weak packet IQ, the buffer length)."""
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+
+    n = cfg.num_samples
+    p1 = modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                  pad_front=0, pad_back=0)
+    p2 = modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                  pad_back=0)
+    phases = [16 * n + (i * n) // 16 + 13 for i in range(16)]
+    aligned = [16 * n, 16 * n + n // 8]
+    depths = [d + 204 for d in (8 * n, 12 * n, 16 * n, 20 * n)]
+    offs = phases + aligned + depths
+    total = max(offs) + 1000 + len(p2) + 12 * n
+    points = [(r, 1000 + o) for r in (0.45, 0.3, 0.2) for o in offs]
+    return points, p1, p2, total
+
+
+def _tier(run, cfg, points, p1, p2, total):
+    """(both-packet count, strong-packet count, failed points) of one
+    decoder tier over the envelope grid."""
+    from gr_lora_tpu_torch.core.codec import decode
+
+    both = strong = 0
+    failed = []
+    for ratio, off2 in points:
+        iq = np.zeros(total, np.complex64)
+        iq[1000:1000 + len(p1)] += (0.2 * p1).astype(np.complex64)
+        iq[off2:off2 + len(p2)] += (0.2 * ratio * p2).astype(np.complex64)
+        pdus = {bytes(r.payload).hex() for r in
+                (decode(s, cfg) for s in run(iq)) if r.ok}
+        strong += PDU1 in pdus
+        both += PDU1 in pdus and PDU2 in pdus
+        if not {PDU1, PDU2} <= pdus:
+            failed.append((ratio, off2))
+    return both, strong, failed
+
+
+def sic_envelope(cfg, dev, card: str, launches: dict) -> None:
+    """Phase 8a: the collision-recovery envelope through the port on the
+    card: pyramid_demodulate at grace 0 and 8 and sic_demodulate(grace=8)
+    at backend "xla" (bench.py's tiers), then SIC at "fused", whose dense
+    passes run K1 (SF8).  SIC must recover both packets, and the strong
+    one, at all 66 points at either backend."""
+    from gr_lora_tpu_torch.models import sic
+    from gr_lora_tpu_torch.models.pyramid import (num_hops_for,
+                                                  pyramid_demodulate)
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+    points, p1, p2, total = envelope_grid(cfg)
+    k1 = [m for m in sic.lattice(cfg, num_hops_for(cfg, total), 16, "fused",
+                                 None, dev).modules()
+          if isinstance(m, RdftPeaks)]
+    tiers = {
+        "grace0": lambda iq: pyramid_demodulate(iq, cfg, grace=0,
+                                                device=dev),
+        "grace8": lambda iq: pyramid_demodulate(iq, cfg, grace=8,
+                                                device=dev),
+        "sic": lambda iq: sic.sic_symbol_streams(iq, cfg, grace=8,
+                                                 device=dev),
+        "sic_fused": lambda iq: sic.sic_symbol_streams(
+            iq, cfg, grace=8, backend="fused", device=dev),
+    }
+    counts, k1_count = {}, 0
+    for name, run in tiers.items():
+        for m in k1:
+            m.launches = 0
+        t0 = time.perf_counter()
+        counts[name] = _tier(run, cfg, points, p1, p2, total)
+        secs = time.perf_counter() - t0
+        both, strong, failed = counts[name]
+        line = (f"sic envelope tier={name} SF{cfg.sf} p={cfg.p} "
+                f"ff={cfg.fft_factor} on {card}: both={both}/{len(points)} "
+                f"strong={strong}/{len(points)} s={secs:.2f}")
+        if name == "sic_fused":
+            k1_count = sum(m.launches for m in k1)
+            line += f" k1_launches={k1_count}"
+        if failed and name.startswith("sic"):
+            line += f" failed={failed}"
+        print(line)
+    for name in ("sic", "sic_fused"):
+        both, strong, failed = counts[name]
+        if both != len(points) or strong != len(points):
+            fail(f"SIC tier {name} recovered both packets at {both} and "
+                 f"the strong one at {strong} of {len(points)} points; "
+                 f"failed at (ratio, offset) {failed}")
+    if k1_count <= 0:
+        fail("SIC at backend fused launched no K1 in its dense passes")
+    launches["rdft_peaks"] += k1_count
+
+
+def sic_python_tracker(cfg, dev) -> None:
+    """Phase 8b: the README golden collision through pyramid_demodulate
+    on the card with the Python tracker and the native one: the same
+    symbol streams."""
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.models.pyramid import pyramid_demodulate
+
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg)
+    off2 = 1000 + 16 * n + 4 * n // 8 + 204
+    iq = np.zeros(off2 + len(p2) + 1000, np.complex64)
+    iq[1000:1000 + len(p1)] += p1
+    iq[off2:off2 + len(p2)] += p2
+    py = pyramid_demodulate(iq, cfg, backend="fused", use_native=False,
+                            device=dev)
+    nat = pyramid_demodulate(iq, cfg, backend="fused", use_native=True,
+                             device=dev)
+    if len(py) != len(nat) or len(py) < 2 or not all(
+            np.array_equal(a, b) for a, b in zip(py, nat)):
+        fail(f"Python tracker gave {len(py)} streams, native {len(nat)}, "
+             "or they differ")
+    print(f"sic python tracker: {len(py)} symbol streams equal to the "
+          "native tracker's (golden collision, fused)")
+
+
+def sic_north_star(iq, singles, ns_pdus: dict, ns_packets: int, dev,
+                   card: str, launches: dict) -> None:
+    """Phase 8c: phase 4's north star (64 channels x SF7-12, fused, host
+    tracker, 2 feeds + flush) with ``sic=True`` at the default gate:
+    every golden PDU and single on every channel, every PDU phase 4
+    decoded, SIC windows run.  Prints the SIC wall, windows, ms a window,
+    the packets beside phase 4's and the K1 / K2 launches of SIC's own
+    dense passes (its lattices, separate from the gateway's)."""
+    import torch
+
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+    from gr_lora_tpu_torch.models import sic
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+    gw = TriggeredPyramidGateway(base_config(), CHANNELS, sfs=SFS,
+                                 max_payload_len=16, backend="fused",
+                                 tracker="host", sic=True, device=dev)
+    kinds = {"rdft_peaks": RdftPeaks, "overlap_peaks": OverlapPeaks}
+
+    def kernels(modules):
+        return {name: [m for mod in modules for m in mod.modules()
+                       if isinstance(m, cls)] for name, cls in kinds.items()}
+
+    own = kernels([gw.lattice(sf) for sf in SFS])
+    in_sic = kernels([sic.lattice(st.cfg, st.win_hops, gw.max_peaks,
+                                  gw.backend, gw._lattice_block_hops(st), dev)
+                      for st in gw.sf_states.values()])
+    for ms in (*own.values(), *in_sic.values()):
+        for m in ms:
+            m.launches = 0
+    iq_dev = torch.from_numpy(iq).to(dev)
+    gw.wall_reset()
+    feeds, walls = [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        feeds.append(gw.feed(iq_dev))
+        walls.append(gw.wall_reset())
+    tail = gw.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    walls.append(gw.wall_reset())
+    counts = {name: sum(m.launches for m in ms) for name, ms in own.items()}
+    sic_counts = {name: sum(m.launches for m in ms)
+                  for name, ms in in_sic.items()}
+    for name, count in counts.items():
+        if count <= 0:
+            fail(f"SIC north star: kernel {name} was not launched")
+        launches[name] += count + sic_counts[name]
+    for i, pk in enumerate(feeds):
+        got = _ok_pdus(pk)
+        missing = [c for c in range(CHANNELS)
+                   if not {(8, PDU1), (8, PDU2)} <= got.get(c, set())]
+        if missing:
+            fail(f"SIC feed {i + 1}: golden PDUs missing on channels "
+                 f"{missing}")
+    every = _ok_pdus(feeds[0] + feeds[1] + tail)
+    lost = [c for c, (hx, _) in singles.items()
+            if not any(sf == SFS[c % len(SFS)] and hx in h
+                       for sf, h in every.get(c, set()))]
+    if lost:
+        fail(f"SIC: singles not decoded on channels {lost}")
+    dropped = {c: sorted(p - every.get(c, set()))
+               for c, p in ns_pdus.items() if p - every.get(c, set())}
+    if dropped:
+        fail(f"SIC lost PDUs phase 4 decoded: {dropped}")
+    sic_s = sum(w["sic"] for w in walls)
+    if gw.sic_windows <= 0 or sic_s <= 0:
+        fail(f"SIC ran on {gw.sic_windows} windows in {sic_s} s")
+    npk = sum(len(f) for f in feeds) + len(tail)
+    print(f"sic north-star {CHANNELS}ch x SF7-12 T={iq.shape[1]} x2 feeds "
+          f"+ flush sic=True sic_gate=0.02 on {card}: "
+          f"sic_windows={gw.sic_windows} wall_sic={sic_s:.4f} "
+          f"ms_per_window={1e3 * sic_s / gw.sic_windows:.3f} "
+          f"packets={npk} (phase 4: {ns_packets}) total_s={secs:.4f} "
+          f"gateway_launches={counts} sic_dense_launches={sic_counts}")
+    del gw, iq_dev
+    torch.cuda.empty_cache()
+
+
 #: Where each peak kernel's top-M runs.
 EPILOGUE = {
     "rdft_peaks": "fused: gr_lora_tpu_torch/csrc/rdft_spectra.cu (sweep "
@@ -1065,7 +1281,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # Phase 4: the north-star main path (K1, K2).
-    launches = main_path(gw, iq_dev, singles, card)
+    launches, ns_pdus, ns_packets = main_path(gw, iq_dev, singles, card)
     del gw, iq_dev
     torch.cuda.empty_cache()
 
@@ -1076,6 +1292,12 @@ def main() -> None:
 
     # Phase 7: the probes (P1, P2).
     probes(dev, card, report, launches)
+    torch.cuda.empty_cache()
+
+    # Phase 8: SIC (K1, K2 in its dense passes and the gateway's lattice).
+    sic_envelope(base_config(), dev, card, launches)
+    sic_python_tracker(base_config(), dev)
+    sic_north_star(iq, singles, ns_pdus, ns_packets, dev, card, launches)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "gr_lora_tpu"))

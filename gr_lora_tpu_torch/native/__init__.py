@@ -102,7 +102,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "lora_pyramid_destroy": (None, [vp]),
         "lora_pyramid_step": (None, [vp, i32p, f32p, f32p, i32]),
         "lora_pyramid_pending": (i32, [vp]),
-        "lora_pyramid_pop": (i32, [vp, u16p, i32]),
+        "lora_pyramid_pop_ts": (i32, [vp, u16p, i32, i64p]),
         "lora_pyramid_flush_hops": (i32, [vp]),
         "lora_pyramid_stats": (None, [vp, i64p]),
         "lora_pyramid_multi_create": (
@@ -168,17 +168,24 @@ class PyramidTracker:
 
     def drain(self) -> list[np.ndarray]:
         """Every finished packet's symbols, oldest first."""
+        return [s for _, s in self.drain_ts()]
+
+    def drain_ts(self) -> list[tuple[int, np.ndarray]]:
+        """As :meth:`drain`, as (preamble timestamp, symbols) pairs; the
+        timestamp is the sample index modulo 2^28, as the tracker clock."""
         out = []
         buf = np.zeros(4096, np.uint16)
+        ts = ctypes.c_int64(0)
         while self._lib.lora_pyramid_pending(self._h) > 0:
-            n = self._lib.lora_pyramid_pop(self._h, _ptr(buf, ctypes.c_uint16),
-                                           len(buf))
+            n = self._lib.lora_pyramid_pop_ts(
+                self._h, _ptr(buf, ctypes.c_uint16), len(buf),
+                ctypes.byref(ts))
             if n == -2:          # packet larger than buffer: grow and retry
                 buf = np.zeros(len(buf) * 2, np.uint16)
                 continue
             if n < 0:
                 break
-            out.append(buf[:n].copy())
+            out.append((int(ts.value), buf[:n].copy()))
         return out
 
     def stats(self) -> dict:

@@ -106,7 +106,13 @@ def test_cotimed_channels_not_suppressed():
                                 dict(mesh=object()),
                                 dict(use_native=False)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """mesh= and tracker="device" raise, citing their ROADMAP items;
+    sic=True and use_native=False build a gateway."""
+    if "sic" in kw or "use_native" in kw:
+        gw = TriggeredPyramidGateway(BASE, 1, sfs=(8,), device="cpu", **kw)
+        assert gw.stats()["sic_windows"] == 0 and gw.wall["sic"] == 0.0
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         TriggeredPyramidGateway(BASE, 1, sfs=(8,), device="cpu", **kw)
 
 

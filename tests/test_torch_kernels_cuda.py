@@ -551,3 +551,64 @@ def test_pyramid_demodulate_defaults_to_card(dev, backend):
     pdus = {bytes(r.payload).hex() for r in (decode(s, cfg) for s in syms)
             if r.ok}
     assert {PDU1, PDU2} <= pdus
+
+
+def _sic_cfg():
+    return LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=True,
+                      payload_len=8, p=2, fft_factor=8, threshold=5.0)
+
+
+def test_sic_fused_recovers_masked_packet_on_card(dev):
+    """tests/test_sic.py's masked weak packet (ratio 0.2): SIC with the
+    fused lattice on the card decodes both PDUs, its dense passes through
+    K1."""
+    from gr_lora_tpu_torch.models import sic
+
+    cfg = _sic_cfg()
+    n = cfg.num_samples
+    p1 = modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                  pad_front=0, pad_back=0)
+    p2 = modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                  pad_back=0)
+    off2 = 1000 + 16 * n + 13
+    iq = np.zeros(off2 + len(p2) + 12 * n, np.complex64)
+    iq[1000:1000 + len(p1)] += (0.2 * p1).astype(np.complex64)
+    iq[off2:off2 + len(p2)] += (0.04 * p2).astype(np.complex64)
+    lat = sic.lattice(cfg, num_hops_for(cfg, len(iq)), 16, "fused", None,
+                      dev)
+    k1 = [m for m in lat.modules() if isinstance(m, RdftPeaks)]
+    assert k1
+    for m in k1:
+        m.launches = 0
+    pkts = sic.sic_demodulate(iq, cfg, grace=8, backend="fused")
+    pdus = {bytes(r.payload).hex()
+            for r in (decode(q.symbols, cfg) for q in pkts) if r.ok}
+    assert {PDU1, PDU2} <= pdus
+    assert sum(m.launches for m in k1) > 0
+
+
+def test_gateway_sic_envelope_point_on_card(dev):
+    """TriggeredPyramidGateway(sic=True) at one envelope point of
+    tests/test_collision_gateway.py (16 symbols + 13 samples, ratio 0.2)
+    on the card: both PDUs, at least one SIC window."""
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+
+    cfg = _sic_cfg()
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.04 * modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                         pad_back=0)
+    off2 = 16 * n + 13
+    iq = np.zeros((1, 5000 + off2 + len(p2) + 60 * n), np.complex64)
+    iq[0, 5000:5000 + len(p1)] += p1
+    iq[0, 5000 + off2:5000 + off2 + len(p2)] += p2
+    gw = TriggeredPyramidGateway(cfg, 1, sfs=(8,), max_payload_len=16,
+                                 scan_chunk_samples=1 << 16, sic=True,
+                                 backend="fused")
+    pkts = gw.feed(to_ri(iq)) + gw.flush()
+    pdus = {bytes(p.result.payload).hex() for p in pkts
+            if p.result is not None and p.result.ok}
+    assert {PDU1, PDU2} <= pdus
+    assert gw.sic_windows >= 1 and gw.wall["sic"] > 0

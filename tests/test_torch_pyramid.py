@@ -53,6 +53,11 @@ def test_noisy_collision_fused():
 
 
 def test_python_tracker_not_ported():
-    with pytest.raises(NotImplementedError):
-        pyramid_demodulate(_collision(OFF2), CFG, use_native=False,
-                           device="cpu")
+    """use_native=False tracks with the Python PyramidTracker twin and
+    returns the native tracker's symbol vectors."""
+    iq = _collision(OFF2)
+    py = pyramid_demodulate(iq, CFG, use_native=False, device="cpu")
+    nat = pyramid_demodulate(iq, CFG, use_native=True, device="cpu")
+    assert len(py) == len(nat) >= 2
+    assert all(np.array_equal(a, b) for a, b in zip(py, nat))
+    assert {PDU_1, PDU_2} <= _pdus(py)

@@ -105,7 +105,14 @@ def test_gateway_complex_input_stats_and_bytes(matrix):
                                 dict(tracker="device"),
                                 dict(use_native=False)])
 def test_gateway_options_not_ported(kw):
-    with pytest.raises(NotImplementedError):
+    """mesh= and tracker="device" raise, citing their ROADMAP items;
+    use_native=False builds the Python tracker bank."""
+    if "use_native" in kw:
+        gw = PyramidGateway(CFG, 2, **CPU, **kw)
+        assert gw.stats() == {"tracks_dropped": 0, "packets_dropped": 0,
+                              "tracks_overflow_finalized": 0}
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         PyramidGateway(CFG, 2, **CPU, **kw)
 
 
@@ -136,8 +143,21 @@ def test_streaming_demodulator_matches_one_shot(backend):
 
 
 def test_streaming_python_tracker_not_ported():
-    with pytest.raises(NotImplementedError):
-        StreamingPyramidDemodulator(PYR_CFG, use_native=False, **CPU)
+    """use_native=False streams through the Python PyramidTracker twin and
+    returns what the native tracker returns, block by block."""
+    iq = _collision(1000 + 16 * PYR_N + 4 * PYR_N // 8 + 204)
+    ri = to_ri(iq)
+    got = {}
+    for use_native in (False, True):
+        sp = StreamingPyramidDemodulator(PYR_CFG, block_hops=512,
+                                         backend="xla",
+                                         use_native=use_native, **CPU)
+        got[use_native] = [sp.feed(ri[i:i + 9001])
+                           for i in range(0, len(ri), 9001)] + [sp.flush()]
+    assert [len(x) for x in got[False]] == [len(x) for x in got[True]]
+    flat = [(a, b) for x, y in zip(got[False], got[True])
+            for a, b in zip(x, y)]
+    assert len(flat) >= 2 and all(np.array_equal(a, b) for a, b in flat)
 
 
 def test_multi_sf_gateway_matches_jax():

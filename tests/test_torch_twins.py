@@ -150,6 +150,7 @@ from gr_lora_tpu_torch.core import decode, encode
 from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.models.pyramid import pyramid_demodulate
+from gr_lora_tpu_torch.models.sic import sic_symbol_streams
 from gr_lora_tpu_torch.ops.cplx import to_ri
 cfg = LoraConfig(sf=8, cr=1, crc=True, explicit_header=True, p=2,
                  fft_factor=8, threshold=5.0)
@@ -166,6 +167,9 @@ assert {bytes(decode(s, cfg).payload).hex() for s in syms} >= golden
 gw = PyramidGateway(cfg, 1, block_hops=256, backend="rdft", device="cpu")
 pkts = gw.feed(to_ri(iq)[None]) + gw.flush()
 assert {bytes(p.result.payload).hex() for p in pkts} >= golden
+syms = sic_symbol_streams(iq, cfg, backend="fused", fast_align=True,
+                          device="cpu")
+assert {bytes(decode(s, cfg).payload).hex() for s in syms} >= golden
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gr_lora_tpu"))
 assert not bad, bad
@@ -174,9 +178,9 @@ print("ok")
 
 
 def test_port_imports_no_jax():
-    """Every port module imported, a CPU decode and a CPU gateway feed run,
-    in a fresh interpreter: neither jax nor any module of the JAX package
-    is loaded."""
+    """Every port module imported, a CPU decode, a CPU gateway feed and a
+    CPU SIC run (models.sic), in a fresh interpreter: neither jax nor any
+    module of the JAX package is loaded."""
     res = subprocess.run([sys.executable, "-c", _PORT_RUN],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -187,6 +191,8 @@ def _entry_points():
                                                         PyramidGateway)
     from gr_lora_tpu_torch.models.pyramid import (StreamingPyramidDemodulator,
                                                   pyramid_demodulate)
+    from gr_lora_tpu_torch.models.sic import (sic_demodulate,
+                                              sic_symbol_streams)
     from gr_lora_tpu_torch.pipeline.device_ring import DeviceRing
 
     _, cfg = _cfg(7, ff=2)
@@ -207,13 +213,18 @@ def _entry_points():
             TriggeredPyramidGateway,
             lambda **kw: TriggeredPyramidGateway(cfg, 1, sfs=(7,), **kw)),
         "DeviceRing": (DeviceRing, lambda **kw: DeviceRing(1, 1024, **kw)),
+        "sic_demodulate": (sic_demodulate,
+                           lambda **kw: sic_demodulate(iq, cfg, **kw)),
+        "sic_symbol_streams": (
+            sic_demodulate, lambda **kw: sic_symbol_streams(iq, cfg, **kw)),
     }
 
 
 @pytest.mark.parametrize("name", ["pyramid_demodulate",
                                   "StreamingPyramidDemodulator",
                                   "PyramidGateway", "MultiSFPyramidGateway",
-                                  "TriggeredPyramidGateway", "DeviceRing"])
+                                  "TriggeredPyramidGateway", "DeviceRing",
+                                  "sic_demodulate", "sic_symbol_streams"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Each entry point's device defaults to "cuda"; with no CUDA device
     it raises unless the caller passes device="cpu", where it runs."""
