@@ -63,7 +63,26 @@ the final ``ok`` line):
    golden collision; (c) phase 4's north star with ``sic=True``: every
    golden PDU and single, every PDU phase 4 decoded, SIC windows run
    (their wall, count and the K1 / K2 launches of SIC's own dense
-   passes printed).
+   passes printed);
+9. fsm     — the FSM receive path, which launches none of the nine
+   kernels (models/demodulator, models/weak, dist/multi_sf,
+   dist/triggered; the per-lane state machine stepped on the card, 32
+   steps a captured CUDA graph): (a) demod_fn batched over 64 channels
+   of bench.py --mode gateway's fixture (SF8, implicit header, payload 6,
+   p 2, ff 2, 1024 symbols, noise 0.05): every payload byte-exact with
+   its CRC; samples/s over 3 replayed passes, steps a pass, ms a step
+   replayed and eager (the same steps launch by launch, equal outputs),
+   launches a step; (b) MultiSFReceiver and (c) TriggeredReceiver over
+   phase 4's fixture on its device copy: every single (for (b) every
+   single the whole-buffer FSM can reach: one ending under one symbol
+   before the capture's end is printed, not asserted), the collision
+   PDUs printed; (d) StreamingDemodulator on (a)'s channel 0 in 50 000-
+   sample chunks, pipelined off and on, equal to (a), and a mid-packet
+   checkpoint resumed in a fresh streamer; (e) weak_demod_fn over 64
+   noisy trials of bench.py --mode per's SF8 weak point plus a clean lane
+   (which must decode; PER printed), and the loopback at SF7-12, byte-
+   exact.  (a)-(c) each profile one pass under torch.profiler (device
+   busy and idle shares, device time by kind of kernel).
 
 Phases 4-8 each assert what they check and that their kernels ran: every
 launch count is set to 0 just before a phase and read just after.  The
@@ -1178,6 +1197,402 @@ def sic_north_star(iq, singles, ns_pdus: dict, ns_packets: int, dev,
     torch.cuda.empty_cache()
 
 
+#: Phase 9 (a): bench.py --mode gateway's fixture at BASELINE's 64 channels.
+FSM_CHANNELS = 64
+FSM_SYMBOLS = 1024
+FSM_PAYLOAD = bytes(range(1, 7))
+FSM_TIMED = 3
+#: Phase 9 (e): bench.py --mode per's weak point at SF8, and the loopback.
+WEAK_TRIALS = 64
+WEAK_SNR_DB = -4.0
+LOOPBACK_PAYLOAD = bytes((3 * i + 1) % 256 for i in range(12))
+
+
+def fsm_config():
+    """bench.py --mode gateway's operating point: SF8, cr 1, CRC, implicit
+    header, payload_len 6, p 2, fft_factor 2."""
+    from gr_lora_tpu_torch import LoraConfig
+
+    return LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=False,
+                      payload_len=6, p=2, fft_factor=2)
+
+
+def fsm_gateway_fixture(cfg, channels: int = FSM_CHANNELS):
+    """bench.py's bench_gateway fixture: noise 0.05 from default_rng(0),
+    then one packet a channel at an offset drawn from the same generator.
+    Returns (iq float32 [C, 1024 n, 2], offsets, packet length)."""
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    total = FSM_SYMBOLS * cfg.num_samples
+    rng = np.random.default_rng(0)
+    pkt = to_ri(modulate(encode(FSM_PAYLOAD, cfg), cfg, pad_front=0,
+                         pad_back=0))
+    iq = rng.normal(0.0, 0.05, (channels, total, 2)).astype(np.float32)
+    offs = []
+    for c in range(channels):
+        off = int(rng.integers(0, max(total - len(pkt), 1)))
+        iq[c, off:off + len(pkt)] += pkt
+        offs.append(off)
+    return iq, offs, len(pkt)
+
+
+#: Device-time classes of the FSM step's kernels (by kernel name).
+_KINDS = (("cuFFT", ("fft",)), ("gather", ("gather",)),
+          ("reduce", ("reduce", "argmax")), ("scan", ("scan",)),
+          ("copy", ("memcpy", "memset", "copy")))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    return next((kind for kind, keys in _KINDS
+                 if any(k in low for k in keys)), "elementwise")
+
+
+def _device_time(prof) -> tuple[float, int, dict]:
+    """(busy ms: the union of the device-side intervals, the number of
+    device-side records, {kind: ms} by _KINDS) of ``prof``, read from its
+    raw trace: a replayed pass records millions of kernels, too many to
+    parse into profiler events."""
+    from torch.autograd import DeviceType
+
+    starts, ends, kinds, by_kind = [], [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        lo, dur, name = e.start_ns(), e.duration_ns(), e.name()
+        starts.append(lo)
+        ends.append(lo + dur)
+        kind = kinds.get(name) or kinds.setdefault(name, _kind(name))
+        by_kind[kind] = by_kind.get(kind, 0) + dur
+    if not starts:
+        return 0.0, 0, {}
+    order = np.argsort(starts, kind="stable")
+    lo = np.asarray(starts, np.float64)[order]
+    hi = np.asarray(ends, np.float64)[order]
+    reach = np.concatenate([[-np.inf], np.maximum.accumulate(hi)[:-1]])
+    busy = float(np.clip(hi - np.maximum(lo, reach), 0, None).sum())
+    split = dict(sorted(((k, v / 1e6) for k, v in by_kind.items()),
+                        key=lambda kv: -kv[1]))
+    return busy / 1e6, len(starts), split
+
+
+def _profiled_pass(run) -> tuple[float, float, dict, float]:
+    """(wall s, device busy ms, device ms by kind, seconds the profiler
+    took to stop and be read) of one ``run()`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    busy, _, split = _device_time(prof)
+    return wall, busy, split, time.perf_counter() - t0
+
+
+def _split_txt(split: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+
+
+def _lane_packets(outs, lane: int) -> list:
+    """[(position, symbols list)] of one lane of demod_fn's outputs."""
+    syms, lens, pos, cnt, _, _ = outs
+    return [(int(pos[lane, r]), syms[lane, r, :lens[lane, r]].tolist())
+            for r in range(int(cnt[lane]))]
+
+
+def fsm_gateway(cfg, dev, card: str):
+    """Phase 9a: demod_fn batched over 64 channels of bench.py --mode
+    gateway's fixture.  Every channel's payload must decode byte-exact
+    with its CRC.  Prints samples/s over FSM_TIMED replayed passes, the
+    steps a pass, ms a step replayed and eager, launches a step, and a
+    profiled pass's busy and idle shares.  Returns (iq, offsets, packet
+    length, channel 0's packets)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gr_lora_tpu_torch.core.codec import decode
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS
+
+    iq, offs, plen = fsm_gateway_fixture(cfg)
+    channels, total = iq.shape[0], iq.shape[1]
+    x = torch.from_numpy(iq).to(dev)
+    fn = demod_fn(cfg, total, 4, device=dev)
+    t0 = time.perf_counter()
+    outs = fn(x)                       # builds and captures the graph
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    host = [o.cpu().numpy() for o in outs]
+    bad = []
+    for c in range(channels):
+        ok = False
+        for _, syms in _lane_packets(host, c):
+            res = decode(np.asarray(syms, np.uint16), cfg)
+            ok |= bool(res.ok and res.crc_ok
+                       and bytes(res.payload[:len(FSM_PAYLOAD)])
+                       == FSM_PAYLOAD)
+        if not ok:
+            bad.append(c)
+    if bad:
+        fail(f"FSM gateway: payload not decoded on channels {bad}")
+    secs = []
+    for _ in range(FSM_TIMED):
+        t0 = time.perf_counter()
+        again = fn(x)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if not all(torch.equal(a, b) for a, b in zip(again, outs)):
+        fail("FSM gateway: a replayed pass differs from the first")
+    steps = fn.loops[channels].steps
+    eager = fn.make_loop(channels, graphed=False)
+    t0 = time.perf_counter()
+    eouts = fn.run(eager, x)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(eouts, outs)):
+        fail("FSM gateway: the eager steps differ from the replayed graph")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eager._steps()
+        torch.cuda.synchronize()
+    _, records, _ = _device_time(prof)
+    wall, busy, split, prof_cost = _profiled_pass(lambda: fn(x))
+    sps = channels * total * FSM_TIMED / sum(secs)
+    best = min(secs)
+    print(f"fsm gateway {channels}ch SF8 implicit p2 ff2 T={total} "
+          f"({FSM_SYMBOLS} symbols) max_packets=4 on {card}: decoded={channels}/"
+          f"{channels} first_pass_s={first_s:.4f} (capture included) "
+          f"pass_s={[round(s, 4) for s in secs]} samples_per_s={sps:.1f} "
+          f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
+          f"steps_per_pass={steps} steps_per_check={STEPS} "
+          f"ms_per_step_replayed={1e3 * best / steps:.4f} "
+          f"eager_pass_s={eager_s:.4f} "
+          f"ms_per_step_eager={1e3 * eager_s / steps:.4f} "
+          f"launches_per_step={records / STEPS:.1f} (device records of "
+          f"{STEPS} eager steps) profiled_pass_s={wall:.4f} "
+          f"device_busy_ms={busy:.2f} idle={1 - busy / (1e3 * wall):.3f} "
+          f"busy_of_timed_pass={busy / (1e3 * best):.3f} "
+          f"device_ms[{_split_txt(split)}] profiler_read_s={prof_cost:.1f}")
+    return iq, offs, plen, _lane_packets(host, 0)
+
+
+def fsm_streaming(cfg, iq, offs, plen: int, ref: list, dev,
+                  card: str) -> None:
+    """Phase 9d: StreamingDemodulator on phase 9a's channel 0 in
+    AO_CHUNK-sample chunks, pipelined off and on, must return 9a's
+    packets for that lane; a checkpoint taken mid-packet and loaded into
+    a fresh streamer must continue to the same packets."""
+    from gr_lora_tpu_torch.models.demodulator import StreamingDemodulator
+
+    lane = iq[0]
+
+    def feed(sd, x):
+        got = []
+        for lo in range(0, x.shape[0], AO_CHUNK):
+            got += sd.feed(x[lo:lo + AO_CHUNK])
+        return got
+
+    walls = {}
+    for pipelined in (False, True):
+        sd = StreamingDemodulator(cfg, pipelined=pipelined, device=dev)
+        t0 = time.perf_counter()
+        got = feed(sd, lane) + sd.flush()
+        walls[pipelined] = time.perf_counter() - t0
+        got = [(p, s.tolist()) for p, s in got]
+        if got != ref:
+            fail(f"FSM streaming (pipelined={pipelined}): {got} != {ref}")
+    cut = offs[0] + plen // 2
+    first = StreamingDemodulator(cfg, device=dev)
+    before = feed(first, lane[:cut])
+    state = first.state_dict()
+    resumed = StreamingDemodulator(cfg, device=dev)
+    resumed.load_state_dict(state)
+    after = feed(resumed, lane[cut:]) + resumed.flush()
+    got = [(p, s.tolist()) for p, s in before + after]
+    if got != ref:
+        fail(f"FSM checkpoint at sample {cut}: {got} != {ref}")
+    print(f"fsm streaming channel 0 T={lane.shape[0]} chunks={AO_CHUNK} "
+          f"on {card}: packets={len(ref)} equal to 9a pipelined off/on "
+          f"wall_s={walls[False]:.4f}/{walls[True]:.4f}; checkpoint at "
+          f"sample {cut} (mid-packet, {len(state)} keys) resumed in a "
+          f"fresh streamer: equal")
+
+
+def _single_slack(singles: dict, t: int) -> dict:
+    """{channel: symbols of its single's SF between the single's end and
+    the capture's end} of the north-star fixture."""
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+
+    slack = {}
+    for c, (_, so) in singles.items():
+        sf = SFS[c % len(SFS)]
+        cfg = base_config().replace(sf=sf, ldr=(1 << sf) / 125e3 > 16e-3)
+        length = len(modulate(encode(bytes([sf, 1, 2, sf]), cfg), cfg,
+                              pad_front=0, pad_back=0))
+        slack[c] = (t - so - length) / cfg.num_samples
+    return slack
+
+
+def fsm_receivers(iq_dev, singles, dev, card: str) -> None:
+    """Phases 9b and 9c: MultiSFReceiver and TriggeredReceiver over phase
+    4's north-star fixture (its device copy).  TriggeredReceiver must
+    decode every single on every channel.  MultiSFReceiver must decode
+    every single that ends at least one symbol of its SF before the
+    capture's end: the whole-buffer FSM emits a packet only in the steps
+    after its last symbol, so the JAX package's demod_fn finds no packet
+    closer to the end either (tests/test_torch_demodulator.py holds both
+    packages to that); the singles beyond that reach are printed.  The
+    golden collision PDUs they find are printed, not asserted.  Each: a
+    first pass (graph captures included), a timed pass that must give the
+    same packets, a profiled pass."""
+    import torch
+
+    from gr_lora_tpu_torch.dist import MultiSFReceiver, TriggeredReceiver
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+
+    channels, t = iq_dev.shape[0], iq_dev.shape[1]
+    slack = _single_slack(singles, t)
+    for label, rx in (("9b multi-SF", MultiSFReceiver(base_config(), sfs=SFS,
+                                                      device=dev)),
+                      ("9c triggered", TriggeredReceiver(base_config(),
+                                                         sfs=SFS,
+                                                         device=dev))):
+        whole = isinstance(rx, MultiSFReceiver)
+        held = {c: v for c, v in singles.items()
+                if not whole or slack[c] >= 1.0}
+        beyond = {c: round(slack[c], 3) for c in singles if c not in held}
+        t0 = time.perf_counter()
+        pkts = rx(iq_dev)
+        first_s = time.perf_counter() - t0
+        counters = (f"events={rx.events} dropped_events={rx.dropped_events} "
+                    f"dropped_packets={rx.dropped_packets}"
+                    if not whole else
+                    f"dropped={rx.dropped} steps_per_sf="
+                    f"{ {sf: demod_fn(c, t, rx.max_packets, dev).loops[channels].steps for sf, c in rx.cfgs.items()} }")
+        got = _ok_pdus(pkts)
+        found = {c for c, (hx, _) in singles.items()
+                 if any(sf == SFS[c % len(SFS)] and hx in h
+                        for sf, h in got.get(c, set()))}
+        lost = sorted(set(held) - found)
+        if lost:
+            fail(f"FSM {label}: singles not decoded on channels {lost}")
+        t0 = time.perf_counter()
+        again = rx(iq_dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        if _ok_pdus(again) != got:
+            fail(f"FSM {label}: a second pass decoded other packets")
+        prof_s, busy, split, prof_cost = _profiled_pass(lambda: rx(iq_dev))
+        both = sum({(8, PDU1), (8, PDU2)} <= got.get(c, set())
+                   for c in range(channels))
+        pdu1 = sum((8, PDU1) in got.get(c, set()) for c in range(channels))
+        pdu2 = sum((8, PDU2) in got.get(c, set()) for c in range(channels))
+        print(f"fsm {label} {channels}ch x SF7-12 T={t} on {card}: "
+              f"packets={len(pkts)} singles={len(found)}/{len(singles)} "
+              f"(asserted {len(held)}; ending under one symbol before the "
+              f"capture's end, symbols of slack: {beyond}) "
+              f"collision PDU1 on {pdu1}, PDU2 on {pdu2}, both on {both} "
+              f"of {channels} channels (not asserted) {counters} (first "
+              f"pass) "
+              f"first_pass_s={first_s:.4f} wall_s={wall_s:.4f} "
+              f"x_realtime_per_channel={t / 250e3 / wall_s:.3f} "
+              f"profiled_pass_s={prof_s:.4f} device_busy_ms={busy:.2f} "
+              f"idle={1 - busy / (1e3 * prof_s):.3f} "
+              f"busy_of_timed_pass={busy / (1e3 * wall_s):.3f} "
+              f"device_ms[{_split_txt(split)}] "
+              f"profiler_read_s={prof_cost:.1f}")
+
+
+def fsm_weak_loopback(dev, card: str) -> None:
+    """Phase 9e: weak_demod_fn batched over bench.py --mode per's SF8
+    weak point (fft_factor 8, "reference" compensation, WEAK_TRIALS
+    noisy trials at WEAK_SNR_DB in-band, bench's seed) plus one clean
+    lane, which must decode; the PER is printed.  Then the txrx_sim
+    loopback (encode -> modulate -> AWGN 10 dB -> demodulate -> decode)
+    at SF7-12, byte-exact with CRC."""
+    import torch
+
+    from gr_lora_tpu_torch import LoraConfig
+    from gr_lora_tpu_torch.core.codec import decode, encode
+    from gr_lora_tpu_torch.models.transceiver import loopback
+    from gr_lora_tpu_torch.models.weak import modulate_weak, weak_demod_fn
+
+    cfg = LoraConfig(sf=8, cr=1, crc=True, ldr=False, explicit_header=False,
+                     payload_len=8, p=2, fft_factor=8)
+    payload = bytes(range(1, 1 + cfg.payload_len))
+    tx = encode(payload, cfg)
+    cfg = cfg.replace(weak_sym_num=len(tx))
+    clean = modulate_weak(tx, cfg)
+    sigma = np.sqrt(cfg.p * 10.0 ** (-WEAK_SNR_DB / 10.0) / 2.0)
+    rng = np.random.default_rng(hash((8, WEAK_SNR_DB, True)) % (1 << 31))
+    noise = sigma * (rng.standard_normal((WEAK_TRIALS, len(clean)))
+                     + 1j * rng.standard_normal((WEAK_TRIALS, len(clean))))
+    batch = np.concatenate([clean[None], clean[None] + noise])
+    x = torch.from_numpy(np.stack([batch.real, batch.imag], -1)
+                         .astype(np.float32)).to(dev)
+    fn = weak_demod_fn(cfg, len(clean), 2, device=dev)
+    t0 = time.perf_counter()
+    syms, lens, cnt, _ = (o.cpu().numpy() for o in fn(x))
+    weak_s = time.perf_counter() - t0
+    ok = []
+    for lane in range(batch.shape[0]):
+        hit = False
+        for r in range(int(cnt[lane])):
+            res = decode(syms[lane, r, :lens[lane, r]].astype(np.uint16),
+                         cfg)
+            hit |= bool(res.ok and res.crc_ok
+                        and bytes(res.payload[:len(payload)]) == payload)
+        ok.append(hit)
+    if not ok[0]:
+        fail("FSM weak: the clean lane did not decode")
+    per = 1.0 - sum(ok[1:]) / WEAK_TRIALS
+    lb = {}
+    for sf in SFS:
+        lcfg = LoraConfig(sf=sf, cr=2, crc=True, ldr=sf >= 11,
+                          explicit_header=False,
+                          payload_len=len(LOOPBACK_PAYLOAD), p=2,
+                          fft_factor=2)
+        t0 = time.perf_counter()
+        r = loopback(LOOPBACK_PAYLOAD, lcfg, snr_db=10.0, device=dev)
+        lb[sf] = time.perf_counter() - t0
+        d = r.decoded[0] if len(r.decoded) == 1 else None
+        if d is None or not (d.ok and d.crc_ok) or \
+                bytes(d.payload[:len(LOOPBACK_PAYLOAD)]) != LOOPBACK_PAYLOAD:
+            fail(f"FSM loopback at SF{sf}: {len(r.packets)} packets, "
+                 f"{[bytes(x.payload).hex() for x in r.decoded]}")
+    print(f"fsm weak SF8 ff8 reference compensation {WEAK_TRIALS} trials at "
+          f"{WEAK_SNR_DB} dB + 1 clean lane on {card}: clean decoded, "
+          f"PER={per:.4f} wall_s={weak_s:.4f} (capture included); loopback "
+          f"SF7-12 AWGN 10 dB byte-exact with CRC: "
+          f"{ {sf: round(s, 3) for sf, s in lb.items()} } s")
+
+
+def fsm_phase(iq_dev, singles, dev, card: str) -> None:
+    """Phase 9: the FSM receive path (no kernel of the nine runs here)."""
+    marks = [time.perf_counter()]
+    cfg = fsm_config()
+    iq, offs, plen, ref = fsm_gateway(cfg, dev, card)
+    marks.append(time.perf_counter())
+    fsm_receivers(iq_dev, singles, dev, card)
+    marks.append(time.perf_counter())
+    fsm_streaming(cfg, iq, offs, plen, ref, dev, card)
+    marks.append(time.perf_counter())
+    fsm_weak_loopback(dev, card)
+    marks.append(time.perf_counter())
+    parts = np.diff(marks)
+    print(f"fsm phase 9 total_s={marks[-1] - marks[0]:.2f} (9a "
+          f"{parts[0]:.1f}, 9b+9c {parts[1]:.1f}, 9d {parts[2]:.1f}, 9e "
+          f"{parts[3]:.1f})")
+
+
 #: Where each peak kernel's top-M runs.
 EPILOGUE = {
     "rdft_peaks": "fused: gr_lora_tpu_torch/csrc/rdft_spectra.cu (sweep "
@@ -1282,7 +1697,7 @@ def main() -> None:
 
     # Phase 4: the north-star main path (K1, K2).
     launches, ns_pdus, ns_packets = main_path(gw, iq_dev, singles, card)
-    del gw, iq_dev
+    del gw
     torch.cuda.empty_cache()
 
     # Phases 5-6: the always-on paths (K3, K4b, K4, K5, K6).
@@ -1298,6 +1713,12 @@ def main() -> None:
     sic_envelope(base_config(), dev, card, launches)
     sic_python_tracker(base_config(), dev)
     sic_north_star(iq, singles, ns_pdus, ns_packets, dev, card, launches)
+
+    # Phase 9: the FSM receive path (launches none of the nine kernels).
+    with torch.no_grad():
+        fsm_phase(iq_dev, singles, dev, card)
+    del iq_dev
+    torch.cuda.empty_cache()
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "gr_lora_tpu"))

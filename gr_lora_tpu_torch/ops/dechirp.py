@@ -86,6 +86,16 @@ def down_bands(window: torch.Tensor, cfg: LoraConfig):
                        window.device)(window)
 
 
+@lru_cache(maxsize=None)
+def _rotations(k: int, device: torch.device) -> torch.Tensor:
+    """The ``k`` phase rotations of the PHASE search, [k, 2] float32 on
+    ``device``, uploaded once (a step captured in a CUDA graph may not
+    copy from the host)."""
+    th = 2.0 * np.pi / k * np.arange(k)
+    return torch.from_numpy(np.stack([np.cos(th), np.sin(th)], -1)
+                            .astype(np.float32)).to(device)
+
+
 def band_peak(lo: torch.Tensor, hi: torch.Tensor, cfg: LoraConfig):
     """(lo, hi) complex bands [..., K, 2] -> (argmax int32, max value)
     under cfg.peak_search (reference: demod_impl.cc:162-213).  ABS folds
@@ -99,9 +109,7 @@ def band_peak(lo: torch.Tensor, hi: torch.Tensor, cfg: LoraConfig):
         val = torch.gather(folded, -1, idx[..., None])[..., 0]
         return idx.to(torch.int32), val
     k = cfg.peak_phase_k if cfg.peak_search == PeakSearch.PHASE else 1
-    th = 2.0 * np.pi / k * np.arange(k)
-    rot = torch.from_numpy(np.stack([np.cos(th), np.sin(th)], -1)
-                           .astype(np.float32)).to(lo.device)   # [k, 2]
+    rot = _rotations(k, lo.device)                          # [k, 2]
     lr, li = lo[..., None, :, 0], lo[..., None, :, 1]
     rr, ri = rot[:, None, 0], rot[:, None, 1]
     sr = lr * rr - li * ri + hi[..., None, :, 0]

@@ -10,7 +10,10 @@ Shapes beyond the always-on main path: K5 and K2 at fft_factor 16 (the
 wider ring), peak_topm, K1, K2 and K4 at M > 16 (each then runs its
 dense front end and peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples)
 and on ragged frame counts.  K1's, K2's and K4's fused searches keep
-their peak allocation below one dense [lanes, hops, K] f32 array.
+their peak allocation below one dense [lanes, hops, K] f32 array.  The
+FSM device loop (models/fsm_loop), which has no kernel of its own: its
+replayed CUDA graph leaves every lane's state equal to the same steps run
+launch by launch, for both machines.
 
 Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
@@ -612,3 +615,103 @@ def test_gateway_sic_envelope_point_on_card(dev):
             if p.result is not None and p.result.ok}
     assert {PDU1, PDU2} <= pdus
     assert gw.sic_windows >= 1 and gw.wall["sic"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The FSM device loop (models/fsm_loop): no kernel of its own, but the
+# replayed CUDA graph must equal the same steps run launch by launch.
+# ---------------------------------------------------------------------------
+
+def _fsm_fixture(machine):
+    """(whole-buffer fn constructor, config, iq [L, T, 2]): lanes of different
+    packets at different offsets and one silent lane, so lanes finish at
+    different steps."""
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from gr_lora_tpu_torch.models.weak import modulate_weak, weak_demod_fn
+
+    rng = np.random.default_rng(11)
+    if machine == "demod":
+        cfg = LoraConfig(sf=7, cr=1, crc=True, explicit_header=True, p=2,
+                         fft_factor=2)
+        waves = [modulate(encode(bytes(range(k)), cfg), cfg,
+                          pad_front=(2 + 7 * i) * cfg.num_samples + 19 * i,
+                          pad_back=0)
+                 for i, k in enumerate((1, 20, 5))]
+        build = demod_fn
+    else:
+        cfg = LoraConfig(sf=8, p=2, fft_factor=8, weak_sym_num=6)
+        waves = [np.concatenate([np.zeros(o, np.complex64), modulate_weak(
+            rng.integers(0, 256, 6), cfg)]) for o in (0, 3 * 512 + 77)]
+        build = weak_demod_fn
+    t = max(len(w) for w in waves) + 3 * cfg.num_samples
+    iq = np.zeros((len(waves) + 1, t), np.complex64)
+    for i, w in enumerate(waves):
+        iq[i, :len(w)] = w
+    iq += (0.01 * (rng.standard_normal(iq.shape)
+                   + 1j * rng.standard_normal(iq.shape))).astype(np.complex64)
+    return build, cfg, to_ri(iq)
+
+
+@pytest.mark.parametrize("machine", ["demod", "weak"])
+def test_fsm_graph_equals_eager_steps(dev, machine):
+    """Both machines: the captured STEPS-step graph, replayed, leaves every
+    lane's whole state equal to the eager steps' on the card, lanes that
+    finish at different steps included; a second replay from the same
+    start equals the first; the packets equal the CPU run's."""
+    build, cfg, iq = _fsm_fixture(machine)
+    lanes, t = iq.shape[0], iq.shape[1]
+    fn = build(cfg, t, 4, device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    graphed, eager = fn.make_loop(lanes), fn.make_loop(lanes, graphed=False)
+    assert graphed.graphed and not eager.graphed
+    outs = fn.run(graphed, x)
+    final = [s.clone() for s in graphed.state]
+    assert fn.run(eager, x) is not None
+    for a, b in zip(final, eager.state):
+        assert torch.equal(a, b)
+    assert len(set(graphed.state.it.tolist())) > 1
+    again = fn.run(graphed, x)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    ref = [o.numpy() for o in build(cfg, t, 4, device="cpu")(
+        torch.from_numpy(iq))]
+    got = [o.cpu().numpy() for o in outs]
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(b, a, rtol=1e-4)
+        else:
+            assert np.array_equal(a, b), i
+    cnt = got[3] if machine == "demod" else got[2]
+    assert cnt.tolist()[:-1] == [1] * (lanes - 1) and cnt[-1] == 0
+
+
+def test_streaming_demod_on_card_equals_cpu(dev):
+    """StreamingDemodulator, pipelined, on the card: the CPU streamer's
+    packets and SNR ratios (rtol 1e-4), and a checkpoint from the card
+    resumes on the CPU to the same packets."""
+    from gr_lora_tpu_torch.models.demodulator import StreamingDemodulator
+
+    cfg = LoraConfig(sf=7, cr=2, crc=True, explicit_header=False,
+                     payload_len=4, p=2, fft_factor=2)
+    n = cfg.num_samples
+    pkt = to_ri(modulate(encode(bytes([0xCA, 0xFE, 0x12, 0x34]), cfg), cfg))
+    iq = np.concatenate([pkt, np.zeros((37 * n + 11, 2), np.float32), pkt])
+    runs = []
+    for device in (dev, "cpu"):
+        sd = StreamingDemodulator(cfg, block_len=8 * n, pipelined=True,
+                                  device=device)
+        got, ratios = [], []
+        for lo in range(0, len(iq), 1536):
+            got += sd.feed(iq[lo:lo + 1536])
+            ratios += sd.snr_ratios
+        got += sd.flush()
+        runs.append(([(p, s.tolist()) for p, s in got],
+                     ratios + sd.snr_ratios))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 2
+    np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=1e-4)
+    card = StreamingDemodulator(cfg, block_len=8 * n, device=dev)
+    cut = len(pkt) + 37 * n + len(pkt) // 2
+    before = card.feed(iq[:cut])
+    cpu = StreamingDemodulator(cfg, block_len=8 * n, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    after = cpu.feed(iq[cut:]) + cpu.flush()
+    assert [(p, s.tolist()) for p, s in before + after] == runs[1][0]

@@ -170,6 +170,16 @@ assert {bytes(p.result.payload).hex() for p in pkts} >= golden
 syms = sic_symbol_streams(iq, cfg, backend="fused", fast_align=True,
                           device="cpu")
 assert {bytes(decode(s, cfg).payload).hex() for s in syms} >= golden
+from gr_lora_tpu_torch.entry import entry
+from gr_lora_tpu_torch.models.transceiver import loopback
+from gr_lora_tpu_torch.models.weak import modulate_weak, weak_demodulate
+assert loopback(bytes([1, 2, 3]), cfg.replace(fft_factor=2),
+                device="cpu").payloads
+wc = cfg.replace(weak_sym_num=4)
+got = weak_demodulate(modulate_weak(np.arange(4), wc), wc, device="cpu")
+assert [g.tolist() for g in got] == [[0, 1, 2, 3]]
+fn, args = entry(device="cpu")
+assert int(fn(*args)[3]) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gr_lora_tpu"))
 assert not bad, bad
@@ -178,9 +188,10 @@ print("ok")
 
 
 def test_port_imports_no_jax():
-    """Every port module imported, a CPU decode, a CPU gateway feed and a
-    CPU SIC run (models.sic), in a fresh interpreter: neither jax nor any
-    module of the JAX package is loaded."""
+    """Every port module imported, a CPU decode, a CPU gateway feed, a
+    CPU SIC run (models.sic) and the FSM receive path (the loopback, the
+    weak demodulator, entry()), in a fresh interpreter: neither jax nor
+    any module of the JAX package is loaded."""
     res = subprocess.run([sys.executable, "-c", _PORT_RUN],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
