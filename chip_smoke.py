@@ -82,9 +82,29 @@ the final ``ok`` line):
    noisy trials of bench.py --mode per's SF8 weak point plus a clean lane
    (which must decode; PER printed), and the loopback at SF7-12, byte-
    exact.  (a)-(c) each profile one pass under torch.profiler (device
-   busy and idle shares, device time by kind of kernel).
+   busy and idle shares, device time by kind of kernel);
+10. wideband — the wideband north star, one SDR stream: 64 x 125 kHz
+   channels at 8 Msps, 2^25 samples (4.19 s of air), on every channel an
+   SF8 collision pair (0.4 / 0.18; channel 1's the golden pair; a drawn
+   pair kept only where the gated gateway decodes both its packets at
+   baseband) and one single at SF SFS[c % 6], payloads distinct, noise
+   0.01, written once to a temporary file: (a) channelize on one 2^21
+   block within 1e-5 of a float64 NumPy evaluation, within 1e-6 of itself
+   with both TF32 flags on (fir_filter at rx_file's 3301 taps too), the
+   streaming channelizer on irregular blocks equal to one whole call
+   (atol 1e-5), its samples/s over 10 blocks; (b) the main path, the hand
+   chain RingIngest -> StreamingChannelizer -> TriggeredPyramidGateway
+   (fused: K1, K2) -> apps.gateway.decode_stream's power track and dedupe
+   -> PduSink -> UDP: every injected PDU exactly once on its channel and
+   SF within 10 symbols of its start, K1 and K2 launched; (c)
+   apps.gateway.main --collision at its default backend (xla) equal to the
+   hand chain at xla (positions within a hop), its differences from (b)
+   printed, and the FSM engine: every single exactly once; (d) tx_file ->
+   rx_file, tx_file -> rx_file_collision at 1 Msps and rx_stream over a
+   250 ksps capture through the ring: the golden PDUs; (e) one pass of
+   (b) under torch.profiler (busy, idle, the ten largest device entries).
 
-Phases 4-8 each assert what they check and that their kernels ran: every
+Phases 4-8 and 10 each assert what they check and that their kernels ran: every
 launch count is set to 0 just before a phase and read just after.  The
 line before the last is a JSON object with every kernel's route, source,
 the TPU kernel it replaces, launches, max |delta| against its plain
@@ -97,6 +117,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -1593,6 +1614,639 @@ def fsm_phase(iq_dev, singles, dev, card: str) -> None:
           f"{parts[3]:.1f})")
 
 
+#: Phase 10: the wideband north star — one SDR stream of 64 x 125 kHz
+#: channels at 8 Msps (the channelizer docstring's own case), p 2, SF7-12.
+WB_FS = 8e6
+WB_SPACING = 125e3
+WB_SAMPLES = 1 << 25             # 4.19 s of air, 2^20 samples a channel
+WB_BLOCK = 1 << 21               # apps/gateway.py's --block default
+WB_NOISE = 0.01
+PAIR_AMPS = (0.4, 0.18)          # tests/test_wideband_e2e.py's pair
+SINGLE_AMP = 0.4
+CHANNELIZER_TIMED = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class Injected:
+    channel: int
+    sf: int
+    offset: int                  # packet start, channel-rate samples
+    pdu: str                     # the decoded PDU's hex
+    kind: str                    # "single", or "strong" / "weak" of a pair
+
+
+GOLDEN_PAIR = (bytes([1, 2, 3, 4, 5, 6]), bytes([7] * 5))
+
+
+def _pair_offset(cfg8) -> int:
+    """The pair's second packet after its first (channel-rate samples):
+    tests/test_wideband_e2e.py's offset."""
+    n8 = cfg8.num_samples
+    return 16 * n8 + 4 * n8 // 8 + 204
+
+
+def wideband_capture(dev):
+    """The wideband capture: on every channel one SF8 collision pair
+    (channel 1's the golden pair) and one single at SF SFS[c % 6],
+    synthesised at the wideband rate (modulate at p = 2 x decimation),
+    mixed to channel_frequencies(channels) on ``dev``, plus noise 0.01
+    from default_rng(1), so that the capture can be made again off the
+    card.  The four fixture rules: payloads differ
+    across channels; every payload's symbols hold no two equal adjacent
+    symbols (candidates drawn from default_rng(0), kept when ``encode``
+    passes); no two packets of the same SF on adjacent channels overlap
+    in time and no single overlaps its own channel's pair; payloads are
+    4-8 bytes.  The schedule is fixed before any draw (from 8-byte
+    packets): adjacent channels' pairs (all SF8) take alternate time
+    slots, and the singles follow every pair, one channel after another
+    at a fixed stride, so adjacent singles (SFS[c % 6] differs from its
+    neighbours' SF, across Nyquist too) may overlap in time.
+    Returns (complex64 host capture, [Injected])."""
+    import torch
+
+    from gr_lora_tpu_torch.core.codec import decode, encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+
+    channels, fs, samples = CHANNELS, WB_FS, WB_SAMPLES
+    if abs(fs - channels * WB_SPACING) > 1e-6:
+        fail(f"the capture needs fs = channels x spacing, got {fs}")
+    up = int(round(fs / (2 * WB_SPACING)))   # wideband samples a p=2 sample
+    base = base_config()
+    cfgs = {sf: base.replace(sf=sf, ldr=(1 << sf) / WB_SPACING > 16e-3)
+            for sf in SFS}
+
+    def longest(sf):                         # an 8-byte packet, p 2
+        cfg = cfgs[sf]
+        return len(modulate(encode(bytes(8), cfg), cfg, p=2, pad_front=0,
+                            pad_back=0))
+
+    n8 = cfgs[8].num_samples
+    off2 = _pair_offset(cfgs[8])
+    span, gap = off2 + longest(8), 4 * n8
+    pair0 = [1000 + (c % 2) * (span + gap) for c in range(channels)]
+    slot0 = 1000 + 2 * (span + gap)
+    total = samples // up
+    stride = (total - slot0 - longest(12) - 4 * cfgs[12].num_samples) \
+        // channels
+    if stride <= 0:
+        fail(f"{samples} samples cannot hold the capture's schedule")
+    single0 = [slot0 + c * stride for c in range(channels)]
+    sf_of = [SFS[c % len(SFS)] for c in range(channels)]
+    if any(sf_of[c] == sf_of[(c + 1) % channels] for c in range(channels)):
+        fail("adjacent channels' singles share an SF")
+
+    rng = np.random.default_rng(0)
+    used = set(GOLDEN_PAIR)
+
+    def draw(cfg):
+        while True:
+            pl = bytes(rng.integers(0, 256, int(rng.integers(4, 9)),
+                                    dtype=np.uint8))
+            syms = encode(pl, cfg)
+            if pl not in used and not np.any(syms[1:] == syms[:-1]):
+                used.add(pl)
+                return pl
+
+    noise = np.random.default_rng(1).standard_normal((samples, 2),
+                                                     dtype=np.float32)
+    wide = torch.view_as_complex(torch.from_numpy(WB_NOISE * noise).to(dev))
+    del noise
+    injected = []
+    for c in range(channels):
+        pair = GOLDEN_PAIR if c == 1 else (draw(cfgs[8]), draw(cfgs[8]))
+        single = draw(cfgs[sf_of[c]])
+        for sf_k, pl, amp, off, kind in (
+                (8, pair[0], PAIR_AMPS[0], pair0[c], "strong"),
+                (8, pair[1], PAIR_AMPS[1], pair0[c] + off2, "weak"),
+                (sf_of[c], single, SINGLE_AMP, single0[c], "single")):
+            cfg = cfgs[sf_k]
+            syms = encode(pl, cfg)
+            pkt = torch.from_numpy(modulate(syms, cfg, p=2 * up, pad_front=0,
+                                            pad_back=0)).to(dev)
+            lo = off * up
+            idx = torch.arange(lo, lo + len(pkt), device=dev)
+            # Channel c's carrier (c - C/2) / C turns a sample: exact in
+            # integers.
+            k = torch.remainder((c - channels // 2) * idx, channels)
+            carrier = torch.polar(torch.ones_like(idx, dtype=torch.float64),
+                                  (2 * np.pi / channels) * k.double())
+            wide[lo:lo + len(pkt)] += (amp * pkt) * carrier.to(
+                torch.complex64)
+            injected.append(Injected(c, sf_k, off, bytes(
+                decode(syms, cfg).payload).hex(), kind))
+    return wide.cpu().numpy(), injected
+
+
+def _udp_datagrams(port) -> list:
+    """Every datagram waiting on a UdpPduPort as (ch, sf, position, hex)."""
+    import socket
+
+    got = []
+    port.sock.settimeout(0.5)
+    try:
+        while True:
+            data, _ = port.sock.recvfrom(65536)
+            got.append((data[0], data[1],
+                        int.from_bytes(data[2:6], "little"), data[6:].hex()))
+    except socket.timeout:
+        pass
+    return got
+
+
+def _check_injected(got, injected, what: str, every: bool = True,
+                    strict_pos: bool = True):
+    """No injected packet more than once in ``got`` (with ``every``,
+    each exactly once) on its channel and SF, and (with ``strict_pos``)
+    each 0-10 symbols after its start.  Fails listing every packet that
+    is not, with the datagrams of its SF and PDU on any channel.
+    Returns (the injected packets decoded, the datagrams that match no
+    injected packet)."""
+    want = {(p.channel, p.sf, p.pdu) for p in injected}
+    problems, decoded = [], []
+    for p in injected:
+        m = [g for g in got if (g[0], g[1], g[3]) == (p.channel, p.sf, p.pdu)]
+        n = (1 << p.sf) * 2
+        if len(m) > 1 or (every and not m):
+            elsewhere = [g for g in got if (g[1], g[3]) == (p.sf, p.pdu)]
+            problems.append(f"{p} arrived {len(m)} times; its PDU at SF"
+                            f"{p.sf} on any channel: {elsewhere}")
+        elif m and strict_pos and not 0 <= m[0][2] - p.offset <= 10 * n:
+            problems.append(f"{p} at {m[0][2]}, not within 10 symbols "
+                            f"after {p.offset}")
+        if m:
+            decoded.append(p)
+    if problems:
+        for line in problems:
+            print(f"{what}: {line}", file=sys.stderr)
+        fail(f"{what}: {len(problems)} of {len(injected)} injected packets "
+             f"not {'exactly' if every else 'at most'} once")
+    return decoded, [g for g in got if (g[0], g[1], g[3]) not in want]
+
+
+def _yield(decoded, injected) -> str:
+    """decoded / injected, by single SF and by the pairs' packets."""
+    def count(pred):
+        return (sum(1 for p in decoded if pred(p)),
+                sum(1 for p in injected if pred(p)))
+
+    parts = [f"single SF{sf} {{}}/{{}}".format(
+        *count(lambda p, sf=sf: p.kind == "single" and p.sf == sf))
+        for sf in SFS]
+    parts += [f"pair {kind} {{}}/{{}}".format(
+        *count(lambda p, kind=kind: p.kind == kind))
+        for kind in ("strong", "weak")]
+    return (f"yield {len(decoded)}/{len(injected)} ("
+            f"{', '.join(parts)})")
+
+
+def _wide_gateway(dev, backend: str):
+    """The gated gateway of phase 10's chains, as ``apps.gateway
+    --collision --max-payload-len 16`` builds it."""
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+
+    return TriggeredPyramidGateway(base_config(), CHANNELS,
+                                   sfs=SFS, max_payload_len=16,
+                                   backend=backend, tracker="host",
+                                   device=dev)
+
+
+def _hand_chain(path: str, gw, dev, udp=None):
+    """RingIngest(capture, WB_BLOCK) -> StreamingChannelizer ->
+    ``gw`` -> the app's power track and dedupe (apps.gateway.decode_stream)
+    -> PduSink (-> UDP).  Returns (sink, wall s)."""
+    import torch
+
+    from gr_lora_tpu_torch.apps.gateway import decode_stream
+    from gr_lora_tpu_torch.dist.pdu_sink import PduSink
+    from gr_lora_tpu_torch.pipeline.channelizer import StreamingChannelizer
+    from gr_lora_tpu_torch.pipeline.ingest import RingIngest
+
+    sink = PduSink(udp=udp, crc_filter=True)
+    chan = StreamingChannelizer(CHANNELS, WB_FS, WB_SPACING, p=2, device=dev)
+    with open(path, "rb") as f:
+        t0 = time.perf_counter()
+        decode_stream(RingIngest(f, WB_BLOCK).blocks(), chan, gw, sink, SFS,
+                      2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sink.close()
+    if chan.out_pos < WB_SAMPLES // chan.decim:
+        fail(f"the hand chain channelized {chan.out_pos} samples a channel "
+             f"of the capture's {WB_SAMPLES // chan.decim}")
+    return sink, wall
+
+
+def wideband_channelizer(wide, dev, card: str) -> None:
+    """Phase 10a: channelize on the card against a float64 NumPy
+    evaluation, its TF32 pinning (and fir_filter's), the streaming
+    channelizer against whole-block calls, and its samples/s."""
+    import torch
+
+    from gr_lora_tpu_torch.pipeline.channelizer import (StreamingChannelizer,
+                                                        _channelizer_plan,
+                                                        channelize)
+    from gr_lora_tpu_torch.pipeline.frontend import design_low_pass, fir_filter
+
+    ri = wide.view(np.float32).reshape(-1, 2)
+    blk = torch.from_numpy(ri[:WB_BLOCK]).to(dev)
+    y = channelize(blk, CHANNELS, WB_FS, device=dev)
+    decim = int(round(WB_FS / (2 * WB_SPACING)))
+    packed, w, offs = _channelizer_plan(CHANNELS, decim, 16,
+                                        WB_SPACING / WB_FS)
+    m = y.shape[1]
+    frames = np.lib.stride_tricks.sliding_window_view(
+        ri[:WB_BLOCK].astype(np.float64), w, axis=0)[::decim][:m]
+    ref = frames.reshape(m, 2 * w) @ packed.astype(np.float64)  # [M, 2W]
+    ref = ref[:, :CHANNELS] + 1j * ref[:, CHANNELS:]
+    turns = (np.arange(m)[:, None] * decim) * offs[None, :]
+    ref = (ref * np.exp(-2j * np.pi * (turns - np.floor(turns)))).T
+    got = y.cpu().numpy()
+    peak = float(np.abs(ref).max())
+    err64 = float(np.abs(got[..., 0] + 1j * got[..., 1] - ref).max()) / peak
+    if err64 > 1e-5:
+        fail(f"channelize differs from its float64 evaluation by {err64} "
+             "of its peak")
+
+    taps = design_low_pass(1.0, 1e6, 125e3 / 2 + 10e3, 1e3)   # rx_file's
+    x1 = torch.from_numpy(ri[:1 << 20]).to(dev)
+    pinned = (y, fir_filter(x1, taps, dev))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        loose = (channelize(blk, CHANNELS, WB_FS, device=dev),
+                 fir_filter(x1, taps, dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    tf32 = [float((a - b).abs().max() / a.abs().max())
+            for a, b in zip(pinned, loose)]
+    if max(tf32) > 1e-6:
+        fail(f"the front end follows the TF32 flags: {tf32} of the peak")
+
+    seg = min(4 * WB_BLOCK, len(ri))
+    whole = channelize(torch.from_numpy(ri[:seg]).to(dev), CHANNELS, WB_FS,
+                       device=dev)
+    sc = StreamingChannelizer(CHANNELS, WB_FS, device=dev)
+    outs, lo = [], 0
+    for size in (7, 1111, WB_BLOCK // 2 + 3, 13, 3 * WB_BLOCK // 2 - 5, seg):
+        outs.append(sc.feed(ri[lo:min(lo + size, seg)]))
+        lo += size
+        if lo >= seg:
+            break
+    streamed = torch.cat(outs, dim=1)
+    k = min(whole.shape[1], streamed.shape[1])
+    stream_err = float((streamed[:, :k] - whole[:, :k]).abs().max())
+    if k < whole.shape[1] - 1 or stream_err > 1e-5:
+        fail(f"the streaming channelizer differs from the whole call: "
+             f"{stream_err} over {k} of {whole.shape[1]} samples")
+    del whole, streamed, outs
+
+    blocks = [torch.from_numpy(ri[i * WB_BLOCK:(i + 1) * WB_BLOCK]).to(dev)
+              for i in range(CHANNELIZER_TIMED)]
+    channelize(blocks[0], CHANNELS, WB_FS, device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in blocks:
+        channelize(b, CHANNELS, WB_FS, device=dev)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / CHANNELIZER_TIMED
+    print(f"wideband 10a channelizer {CHANNELS}ch at {WB_FS:.0f} sps, "
+          f"W={w}, block {WB_BLOCK} on {card}: max_err_vs_f64="
+          f"{err64:.3e} of peak, tf32_flags_on_delta channelize="
+          f"{tf32[0]:.3e} fir_filter(3301 taps)={tf32[1]:.3e}, "
+          f"streamed_vs_whole={stream_err:.3e} over {k} samples, "
+          f"ms_per_block={ms:.4f} samples_per_s={WB_BLOCK / ms * 1e3:.1f} "
+          f"x_realtime={WB_BLOCK / ms * 1e3 / WB_FS:.2f}")
+
+
+def _chain_datagrams(path: str, gw, dev):
+    """The hand chain (``_hand_chain``) into UDP on an ephemeral port:
+    (its datagrams, the sink, wall s)."""
+    from gr_lora_tpu_torch.apps.common import UdpPduPort
+
+    rx = UdpPduPort(listen_port=0)
+    sink, wall = _hand_chain(path, gw, dev,
+                             udp=("127.0.0.1", rx.sock.getsockname()[1]))
+    got = _udp_datagrams(rx)
+    rx.close()
+    return got, sink, wall
+
+
+def _keyed(dgrams) -> dict:
+    out = {}
+    for ch, sf, pos, hx in dgrams:
+        out.setdefault((ch, sf, hx), []).append(pos)
+    return out
+
+
+def _same_datagrams(got, ref, what: str) -> None:
+    """The same (channel, sf, payload) datagrams, each position within one
+    hop (tests/test_torch_collision_gateway.py's convention)."""
+    ours, theirs = _keyed(got), _keyed(ref)
+    if set(ours) != set(theirs):
+        fail(f"{what}: different datagrams "
+             f"{sorted(set(ours) ^ set(theirs))}")
+    for key, pos in ours.items():
+        hop = (1 << key[1]) * 2 // 8
+        if len(pos) != len(theirs[key]) or any(
+                abs(a - b) > hop for a, b in zip(sorted(pos),
+                                                 sorted(theirs[key]))):
+            fail(f"{what}: {key} at {pos} and at {theirs[key]}")
+
+
+def wideband_chain(path: str, injected, dev, card: str, launches: dict):
+    """Phase 10b: the slice's main path, the hand chain at ``fused`` (K1
+    at SF7-9, K2 at SF10-12): no injected packet twice, each on its
+    channel and SF within 10 symbols of its start, the golden pair
+    decoded, and the yield (decoded / injected) printed: the Pyramid
+    decoder does not decode every random pair or single (ROADMAP Queue
+    3), so all 192 once is not asserted.  Returns the UDP datagrams."""
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+    gw = _wide_gateway(dev, "fused")
+    kinds = {"rdft_peaks": RdftPeaks, "overlap_peaks": OverlapPeaks}
+    mods = {name: [m for sf in SFS for m in gw.lattice(sf).modules()
+                   if isinstance(m, cls)] for name, cls in kinds.items()}
+    for ms in mods.values():
+        for m in ms:
+            m.launches = 0
+    gw.wall_reset()
+    got, sink, wall = _chain_datagrams(path, gw, dev)
+    counts = {name: sum(m.launches for m in ms) for name, ms in mods.items()}
+    for name, count in counts.items():
+        if count <= 0:
+            fail(f"wideband chain: kernel {name} was not launched")
+        launches[name] += count
+    decoded, extra = _check_injected(got, injected, "wideband chain",
+                                     every=False)
+    _check_injected(got, [p for p in injected if p.channel == 1 and
+                          p.kind != "single"], "wideband chain, golden pair")
+    air = WB_SAMPLES / WB_FS
+    w = gw.wall
+    print(f"wideband 10b hand chain ring -> channelizer -> gated gateway "
+          f"(fused) -> dedupe -> PduSink -> UDP, {CHANNELS}ch x SF7-12, "
+          f"{WB_SAMPLES} samples ({air:.2f} s of air) on {card}: "
+          f"wall={wall:.4f} s x_realtime={air / wall:.3f} "
+          f"gateway_wall[ingest={w['ingest']:.4f} scan={w['scan']:.4f} "
+          f"lattice={w['lattice']:.4f} tracker={w['tracker']:.4f} "
+          f"decode={w['decode']:.4f}] sink={sink.stats()} "
+          f"datagrams={len(got)} {_yield(decoded, injected)}, none twice, "
+          f"golden pair decoded, launches={counts}")
+    missed = [p for p in injected if p not in decoded]
+    for p in missed:
+        print(f"wideband 10b not decoded: {p}")
+    for g in extra:
+        print(f"wideband 10b extra datagram: {g}")
+    return got
+
+
+def _cli(argv, dev):
+    """(exit code, UDP datagrams, wall s, stats line) of one
+    apps.gateway.main run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gr_lora_tpu_torch.apps import gateway
+    from gr_lora_tpu_torch.apps.common import UdpPduPort
+
+    rx = UdpPduPort(listen_port=0)
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = gateway.main(argv + ["--udp",
+                                  f"127.0.0.1:{rx.sock.getsockname()[1]}"],
+                          device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _udp_datagrams(rx)
+    rx.close()
+    return rc, got, wall, err.getvalue().strip()
+
+
+def wideband_cli(path: str, injected, chain, dev, card: str) -> None:
+    """Phase 10c: apps.gateway.main on the same capture.  With
+    --collision its engine runs the gateway's default backend, ``xla``:
+    the CLI must give the datagrams of the hand chain at that backend, no
+    injected packet twice and each within 10 symbols of its start; its
+    differences from 10b (``fused``) are printed, since the two backends
+    can decode different packets in both packages (ROADMAP Queue 3).
+    With the FSM engine: every single exactly once."""
+    argv = [path, "--samp-rate", str(WB_FS), "--channels", str(CHANNELS),
+            "--sfs", ",".join(map(str, SFS)), "--quiet"]
+    air = WB_SAMPLES / WB_FS
+    hand_xla, _, hand_wall = _chain_datagrams(path, _wide_gateway(dev, "xla"),
+                                              dev)
+    rc, got, wall, stats = _cli(argv + ["--collision", "--max-payload-len",
+                                        "16"], dev)
+    if rc != 0:
+        fail(f"gateway --collision exited {rc}: {stats}")
+    _same_datagrams(got, hand_xla, "gateway --collision vs the hand chain "
+                                   "at xla")
+    decoded, _ = _check_injected(got, injected, "gateway --collision",
+                                 every=False)
+    cli, fused = set(_keyed(got)), set(_keyed(chain))
+    print(f"wideband 10c gateway --collision (backend xla) on {card}: "
+          f"datagrams={len(got)} equal to the hand chain at xla (its wall "
+          f"{hand_wall:.4f} s), {_yield(decoded, injected)}, none twice; "
+          f"vs 10b (fused): only fused {sorted(fused - cli)}, only xla "
+          f"{sorted(cli - fused)}; wall={wall:.4f} s "
+          f"x_realtime={air / wall:.3f} ({stats})")
+
+    rc, got, wall, stats = _cli(argv, dev)
+    if rc != 0:
+        fail(f"gateway (FSM engine) exited {rc}: {stats}")
+    singles = [p for p in injected if p.kind == "single"]
+    _, extra = _check_injected(got, singles, "gateway (FSM)",
+                               strict_pos=False)
+    pairs = {(p.channel, p.sf, p.pdu) for p in injected
+             if p.kind != "single"}
+    coll = [g for g in extra if (g[0], g[1], g[3]) in pairs]
+    offs = [g[2] - p.offset for p in singles for g in got
+            if (g[0], g[1], g[3]) == (p.channel, p.sf, p.pdu)]
+    print(f"wideband 10c gateway (FSM engine) on {card}: "
+          f"datagrams={len(got)} singles={len(singles)}/{len(singles)} "
+          f"position offsets [{min(offs)}, {max(offs)}] samples, collision "
+          f"PDUs={len(coll)} of {len(pairs)} (not asserted), other="
+          f"{len(extra) - len(coll)}, wall={wall:.4f} s "
+          f"x_realtime={air / wall:.3f} ({stats})")
+
+
+def _app_out(main, argv, dev) -> str:
+    """stdout of one app's main(argv, device=dev); fails on a non-zero
+    exit."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv, device=dev)
+    if rc != 0:
+        fail(f"{main.__module__} {argv} exited {rc}: {out.getvalue()}")
+    return out.getvalue()
+
+
+def reference_flowgraphs(tmp: str, dev, card: str) -> None:
+    """Phase 10d: tx_file then rx_file (the golden single) and tx_file
+    with two payloads then rx_file_collision (the weak packet) at 1 Msps,
+    as tests/test_apps.py runs them, and rx_stream over a 250 ksps capture
+    through the ring."""
+    import os
+
+    from gr_lora_tpu_torch.apps import (rx_file, rx_file_collision,
+                                        rx_stream, tx_file)
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+
+    golden = " ".join(PDU1[i:i + 2] for i in range(0, len(PDU1), 2))
+    t0 = time.perf_counter()
+    single = os.path.join(tmp, "single.cf64")
+    _app_out(tx_file.main, [single, "--payload", "010203040506",
+                            "--amplitude", "0.3"], dev)
+    if golden not in _app_out(rx_file.main, [single], dev):
+        fail("rx_file did not print the golden PDU")
+    t1 = time.perf_counter()
+    coll = os.path.join(tmp, "collision.cf64")
+    _app_out(tx_file.main, [coll, "--payload", "010203040506", "--payload",
+                            "0707070707", "--offset", "0", "--offset",
+                            "19.72265625", "--amplitude", "0.25",
+                            "--amplitude", "0.12"], dev)
+    if "07 07 07 07 07" not in _app_out(rx_file_collision.main, [coll], dev):
+        fail("rx_file_collision did not recover the weak packet")
+    t2 = time.perf_counter()
+    cfg = base_config()
+    stream = os.path.join(tmp, "stream.cf64")
+    np.asarray(0.5 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg),
+               np.complex64).tofile(stream)
+    if golden not in _app_out(rx_stream.main, [stream, "--chunk", "4096"],
+                              dev):
+        fail("rx_stream did not print the golden PDU")
+    t3 = time.perf_counter()
+    print(f"wideband 10d reference flowgraphs on {card}: tx_file + rx_file "
+          f"golden single {t1 - t0:.2f} s, tx_file + rx_file_collision weak "
+          f"packet {t2 - t1:.2f} s, rx_stream through the ring "
+          f"{t3 - t2:.2f} s")
+
+
+def _device_names(prof, top: int = 10) -> list:
+    """The ``top`` largest (device ms, records, name) sums of ``prof``'s
+    raw trace."""
+    from torch.autograd import DeviceType
+
+    ns, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns[e.name()] = ns.get(e.name(), 0) + e.duration_ns()
+            count[e.name()] = count.get(e.name(), 0) + 1
+    return sorted(((v / 1e6, count[k], k) for k, v in ns.items()),
+                  reverse=True)[:top]
+
+
+def _host_copies(prof, tmp: str) -> dict:
+    """{"Memcpy HtoD (... -> Device)": [bytes of each record]} of
+    ``prof``'s host-to-device copies, from its Chrome trace (the raw
+    trace's events carry no byte counts); None where a record has none."""
+    import os
+
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    out = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") == "X" and name.startswith("Memcpy HtoD"):
+            out.setdefault(name, []).append(e.get("args", {}).get("bytes"))
+    return out
+
+
+def wideband_profile(path: str, tmp: str, dev, card: str) -> None:
+    """Phase 10e: one pass of the hand chain under torch.profiler: device
+    busy and idle shares, the ten largest device-time entries, and every
+    host-to-device copy by kind: no block pinned on the host
+    (``aten::pin_memory``) or copied from pinned memory more than once,
+    and no block-sized copy from pageable memory.  Some full runs'
+    traces hold one block-sized pinned copy fewer than the blocks the
+    host pinned (15 of 16), so fewer is printed, not failed;
+    ``_hand_chain`` checks that every block reached the channelizer.  The fresh
+    gateway's other copies are the constants of its scan and lattice
+    modules, built on their first use."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gw = _wide_gateway(dev, "fused")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _hand_chain(path, gw, dev)
+    busy, records, _ = _device_time(prof)
+    top = "; ".join(f"{ms:.2f} ({k}x) {_kernel_name(name)[:60]}"
+                    for ms, k, name in _device_names(prof))
+    copies = _host_copies(prof, tmp)
+    if any(b is None for sizes in copies.values() for b in sizes):
+        fail(f"10e: a host-to-device copy carries no byte count: {copies}")
+    blocks = -(-WB_SAMPLES // WB_BLOCK)
+    ups = {name: sizes.count(8 * WB_BLOCK) for name, sizes in copies.items()}
+    pinned = ups.get("Memcpy HtoD (Pinned -> Device)", 0)
+    pins = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name() == "aten::pin_memory")
+    if pins > blocks or pinned > blocks or sum(ups.values()) != pinned:
+        fail(f"10e: {blocks} blocks, {pins} pin_memory calls, block-sized "
+             f"copies by kind: {ups}")
+    listed = "; ".join(f"{name}: {len(sizes)} records, {sum(sizes)} bytes, "
+                       f"largest {sorted(sizes)[-3:]}"
+                       for name, sizes in sorted(copies.items()))
+    print(f"wideband 10e profiled hand-chain pass on {card}: wall="
+          f"{wall:.4f} s device_busy={busy:.2f} ms "
+          f"({100 * busy / (1e3 * wall):.1f} %) idle="
+          f"{100 - 100 * busy / (1e3 * wall):.1f} % records={records}; "
+          f"top device ms: {top}; host-to-device copies: {listed}; "
+          f"{pins} blocks pinned on the host, block-sized copies traced: "
+          f"{pinned} pinned, none pageable")
+
+
+def wideband_phase(dev, card: str, launches: dict) -> None:
+    """Phase 10: the wideband north star, one SDR stream end to end."""
+    import os
+    import tempfile
+
+    import torch
+
+    marks = [time.perf_counter()]
+    wide, injected = wideband_capture(dev)
+    print(f"wideband capture {CHANNELS}ch x SF7-12, {WB_SAMPLES} samples at "
+          f"{WB_FS:.0f} sps: {len(injected)} packets, payloads drawn from "
+          "default_rng(0) under the four fixture rules")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wideband.cf64")
+        wide.tofile(path)
+        marks.append(time.perf_counter())
+        with torch.no_grad():
+            wideband_channelizer(wide, dev, card)
+        del wide
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        chain = wideband_chain(path, injected, dev, card, launches)
+        marks.append(time.perf_counter())
+        wideband_cli(path, injected, chain, dev, card)
+        marks.append(time.perf_counter())
+        reference_flowgraphs(tmp, dev, card)
+        marks.append(time.perf_counter())
+        wideband_profile(path, tmp, dev, card)
+        marks.append(time.perf_counter())
+    parts = np.diff(marks)
+    print(f"wideband phase 10 total_s={marks[-1] - marks[0]:.2f} (capture "
+          f"{parts[0]:.1f}, 10a {parts[1]:.1f}, 10b {parts[2]:.1f}, 10c "
+          f"{parts[3]:.1f}, 10d {parts[4]:.1f}, 10e {parts[5]:.1f})")
+
+
 #: Where each peak kernel's top-M runs.
 EPILOGUE = {
     "rdft_peaks": "fused: gr_lora_tpu_torch/csrc/rdft_spectra.cu (sweep "
@@ -1718,6 +2372,10 @@ def main() -> None:
     with torch.no_grad():
         fsm_phase(iq_dev, singles, dev, card)
     del iq_dev
+    torch.cuda.empty_cache()
+
+    # Phase 10: the wideband north star (K1, K2 in its hand chain).
+    wideband_phase(dev, card, launches)
     torch.cuda.empty_cache()
 
     foreign = sorted(m for m in sys.modules

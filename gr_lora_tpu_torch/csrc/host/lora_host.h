@@ -1,9 +1,12 @@
-/* C API of the port's host tracker library (the tracker part of the JAX
- * package's native/include/lora_host.h, unchanged).
+/* C API of the port's host library (the JAX package's
+ * native/include/lora_host.h, unchanged: the codec, the Pyramid tracker and
+ * the ring).
  *
  * The card owns the signal-processing compute; this library owns the
- * packet-rate peak tracking around it, as the reference keeps it in C++.
- * Exposed as a flat C ABI for ctypes binding (gr_lora_tpu_torch/native).
+ * packet-rate host paths around it, as the reference keeps them in C++
+ * (bit-level codec: encode_impl.cc/decode_impl.cc; stream buffering: the
+ * GNU Radio runtime's ring buffers; the Pyramid peak tracking).  Exposed as
+ * a flat C ABI for ctypes binding (gr_lora_tpu_torch/native).
  */
 
 #ifndef GR_LORA_TPU_TORCH_LORA_HOST_H
@@ -15,6 +18,42 @@
 #ifdef __cplusplus
 extern "C" {
 #endif
+
+typedef struct {
+  int32_t sf;              /* 6..12 */
+  int32_t cr;              /* 1..4 */
+  int32_t crc;             /* bool */
+  int32_t ldr;             /* bool */
+  int32_t explicit_header; /* bool */
+  int32_t payload_len;     /* implicit-header payload bytes */
+} lora_params;
+
+/* Total symbols per packet incl. the 8 header symbols
+ * (reference: encode_impl.cc:107-112). */
+int32_t lora_calc_sym_num(const lora_params* prm, int32_t payload_len);
+
+/* payload -> chirp-bin symbols.  Returns symbol count, or -1 on bad args,
+ * -2 if out_cap is too small. */
+int32_t lora_encode(const lora_params* prm, const uint8_t* payload,
+                    int32_t payload_len, uint16_t* out_syms, int32_t out_cap);
+
+/* chirp-bin symbols -> bytes (header bytes + payload + CRC bytes + 1
+ * pass/fail byte, exactly the reference PDU, decode_impl.cc:406-413).
+ * Returns byte count; -1 invalid header, -2 short packet, -3 out_cap too
+ * small.  hdr_* and crc_ok may be NULL. */
+int32_t lora_decode(const lora_params* prm, const uint16_t* syms,
+                    int32_t nsym, uint8_t* out, int32_t out_cap,
+                    int32_t* hdr_valid, int32_t* hdr_payload_len,
+                    int32_t* hdr_cr, int32_t* hdr_crc, int32_t* crc_ok);
+
+/* CRC16 with the reference's XOR-last-two-bytes quirk (utilities.h:74-94). */
+uint16_t lora_data_checksum(const uint8_t* data, int32_t len);
+
+/* 5-bit explicit-header checksum (utilities.h:96-120). */
+uint8_t lora_header_checksum(uint8_t payload_len, uint8_t cr_crc);
+
+/* The 255-byte whitening sequence (lora.h:29-30); dst must hold 255. */
+void lora_whitening_sequence(uint8_t* dst);
 
 /* ---- Pyramid peak-track / packet state machine (host fast path;
  * behavior-identical to the JAX package's models/pyramid.PyramidTracker). ---- */
@@ -74,6 +113,20 @@ int32_t lora_pyramid_multi_pop_ts(lora_pyramid_multi* m, int32_t channel,
                                   uint16_t* dst, int32_t cap, int64_t* ts);
 int32_t lora_pyramid_multi_flush_hops(const lora_pyramid_multi* m);
 void lora_pyramid_multi_stats(const lora_pyramid_multi* m, int64_t* out3);
+
+/* ---- SPSC lock-free ring buffer (GR stream-buffer analog). ---- */
+typedef struct lora_ring lora_ring;
+
+lora_ring* lora_ring_create(size_t capacity_bytes);
+void lora_ring_destroy(lora_ring* rb);
+size_t lora_ring_capacity(const lora_ring* rb);
+size_t lora_ring_readable(const lora_ring* rb);
+size_t lora_ring_writable(const lora_ring* rb);
+/* Both return the number of bytes actually moved (partial on full/empty). */
+size_t lora_ring_write(lora_ring* rb, const uint8_t* data, size_t n);
+size_t lora_ring_read(lora_ring* rb, uint8_t* out, size_t n);
+/* Copy without consuming (for overlap-save history windows). */
+size_t lora_ring_peek(const lora_ring* rb, uint8_t* out, size_t n);
 
 #ifdef __cplusplus
 }

@@ -3,6 +3,7 @@ the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Every entry point's default device.
@@ -22,3 +23,20 @@ def resolve(device: str | torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(iq, device: torch.device) -> torch.Tensor:
+    """IQ as a float32 tensor on ``device``: a tensor is moved (not copied
+    when it already lies there); a host array — complex, or float pairs —
+    crosses once, on a CUDA device from pinned memory with a non-blocking
+    copy (the caching host allocator keeps the pinned block alive until
+    the copy has run)."""
+    if isinstance(iq, torch.Tensor):
+        return iq.to(device=device, dtype=torch.float32)
+    a = np.asarray(iq)
+    if np.iscomplexobj(a):
+        a = np.stack([a.real, a.imag], -1)
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -25,6 +25,7 @@ from ..config import REQUIRED_PREAMBLE_CHIRPS, LoraConfig
 from ..core.codec import DecodeResult, decode
 from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
+from ..device import upload
 from ..models.demodulator import demod_fn, max_packet_symbols
 from ..models.modulator import NUM_PREAMBLE_CHIRPS, packet_duration
 from ..ops.cplx import cmag
@@ -33,14 +34,9 @@ from ..ops.dechirp import up_plan
 
 def device_feed(iq, device: torch.device) -> torch.Tensor:
     """A feed as float32 [C, T, 2] on ``device``: complex or [..., T, 2]
-    float IQ, a host array (uploaded once) or a tensor (left where it is
-    when it already lies on ``device``)."""
-    if isinstance(iq, torch.Tensor):
-        x = iq.to(device=device, dtype=torch.float32)
-    else:
-        if np.iscomplexobj(iq):
-            iq = np.stack([np.asarray(iq).real, np.asarray(iq).imag], -1)
-        x = torch.from_numpy(np.asarray(iq, np.float32)).to(device)
+    float IQ, a host array (uploaded once, device.upload) or a tensor
+    (left where it is when it already lies on ``device``)."""
+    x = upload(iq, device)
     return x[None] if x.dim() == 2 else x
 
 

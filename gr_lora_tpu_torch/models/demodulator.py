@@ -707,12 +707,13 @@ def make_demodulator(cfg: LoraConfig, num_samples_total: int,
 
 def demodulate(iq, cfg: LoraConfig, max_packets: int = 8,
                device: str | torch.device = DEFAULT_DEVICE):
-    """Convenience host API: complex64 (or [T,2] float32) IQ -> list of
-    uint16 symbol arrays, one per detected packet."""
-    x = host_ri(iq)
+    """Convenience host API: complex64 (or [T,2] float32) IQ, or a
+    float32 [T, 2] tensor (used where it lies when that is ``device``) ->
+    list of uint16 symbol arrays, one per detected packet."""
+    x = iq.reshape(-1, 2) if isinstance(iq, torch.Tensor) \
+        else torch.from_numpy(host_ri(iq))
     fn = make_demodulator(cfg, x.shape[0], max_packets, device)
-    out_syms, out_len, _, out_cnt, _, _ = (
-        o.cpu().numpy() for o in fn(torch.from_numpy(x)))
+    out_syms, out_len, _, out_cnt, _, _ = (o.cpu().numpy() for o in fn(x))
     return [out_syms[i, :out_len[i]].astype(np.uint16)
             for i in range(int(out_cnt))]
 

@@ -45,6 +45,7 @@ from ..config import (PYRAMID_MAX_TRACK_PEAKS, PYRAMID_NUM_PREAMBLE,
                       PYRAMID_TRACK_POOL, TIMESTAMP_MOD, LoraConfig)
 from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
+from ..device import upload
 from ..ops.chunk_spectra import ChunkSpectra
 from ..ops.cplx import to_ri
 from ..ops.dechirp import fold_spectra, frame_signal, pyramid_plan
@@ -637,14 +638,7 @@ def pyramid_demodulate(iq, cfg: LoraConfig, max_peaks: int = 16,
     tracker (``use_native`` True or None) or its Python twin
     :class:`PyramidTracker` (False); the two are behavior-identical.
     """
-    dev = resolve_device(device)
-    if isinstance(iq, torch.Tensor):
-        x = iq.to(dev, torch.float32)
-    else:
-        a = np.asarray(iq)
-        if np.iscomplexobj(a):
-            a = to_ri(a)
-        x = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    x = upload(iq, resolve_device(device))
     nh = num_hops_for(cfg, x.shape[0])
     if nh == 0:
         return []

@@ -217,10 +217,11 @@ def test_host_tracker_rejects_bad_input():
 
 
 def test_host_tracker_library_is_built_from_the_port():
-    """The tracker library is the port's own build under _build/, never
-    the JAX package's native/liblora_host.so."""
+    """The host library (tracker, codec, ring) is the port's own build
+    under _build/, never the JAX package's native/liblora_host.so."""
     lib = tnative.library()
     assert tnative.LIB_PATH.exists() and not tnative._stale()
     assert tnative.LIB_PATH.parent.name == "_build"
     assert lib._name == str(tnative.LIB_PATH)
-    assert [p.name for p in tnative.sources()] == ["pyramid_tracker.cc"]
+    assert [p.name for p in tnative.sources()] == [
+        "lora_codec.cc", "pyramid_tracker.cc", "ring_buffer.cc"]

@@ -13,7 +13,10 @@ and on ragged frame counts.  K1's, K2's and K4's fused searches keep
 their peak allocation below one dense [lanes, hops, K] f32 array.  The
 FSM device loop (models/fsm_loop), which has no kernel of its own: its
 replayed CUDA graph leaves every lane's state equal to the same steps run
-launch by launch, for both machines.
+launch by launch, for both machines.  The RX front end, which has no
+kernel either: channelize and fir_filter run in full f32 whatever the
+TF32 flags, channelize's phase holds float64 precision at a large sample
+offset, and the streaming channelizer equals one whole call on the card.
 
 Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
@@ -715,3 +718,103 @@ def test_streaming_demod_on_card_equals_cpu(dev):
     cpu.load_state_dict(card.state_dict())
     after = cpu.feed(iq[cut:]) + cpu.flush()
     assert [(p, s.tolist()) for p, s in before + after] == runs[1][0]
+
+
+def _channelize_f64(x, num_channels, fs_in, sample_offset, p=2,
+                    spacing=125e3):
+    """float64 NumPy evaluation of channelize's packed product and residual
+    phase, from the same f32 weights."""
+    from gr_lora_tpu_torch.pipeline.channelizer import _channelizer_plan
+
+    decim = int(round(fs_in / (p * spacing)))
+    packed, w, offs = _channelizer_plan(num_channels, decim, 16,
+                                        spacing / fs_in)
+    m = (len(x) - w) // decim + 1
+    idx = np.arange(m)[:, None] * decim + np.arange(w)[None, :]
+    xp = np.concatenate([x[idx, 0], x[idx, 1]], axis=1).astype(np.float64)
+    y = xp @ packed.astype(np.float64)
+    y = y[:, :num_channels] + 1j * y[:, num_channels:]
+    turns = (np.arange(m)[:, None] * decim + sample_offset) * offs[None, :]
+    y = y * np.exp(-2j * np.pi * (turns - np.floor(turns)))
+    return np.stack([y.real, y.imag], -1).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("stage", ["channelize", "fir_filter"])
+def test_front_end_pins_f32_on_card(dev, stage):
+    """The front end runs in full f32 whatever the caller's TF32 flags:
+    the same call with both flags on equals the call with both off within
+    1e-6 of its peak (TF32 misses by 1e-4 to 1e-3), the caller's flags
+    come back unchanged, and the result is the CPU's within 1e-5."""
+    from gr_lora_tpu_torch.pipeline.channelizer import channelize
+    from gr_lora_tpu_torch.pipeline.frontend import design_low_pass, fir_filter
+
+    x = np.random.default_rng(11).standard_normal((1 << 16, 2)) \
+        .astype(np.float32)
+    if stage == "channelize":
+        def run(device):
+            return channelize(x, 64, 8e6, device=device).cpu().numpy()
+    else:
+        taps = design_low_pass(1.0, 1e6, 72.5e3, 1e3)
+
+        def run(device):
+            return fir_filter(x, taps, device=device).cpu().numpy()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pinned = run(dev)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        loose = run(dev)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    peak = np.abs(pinned).max()
+    assert np.abs(loose - pinned).max() <= 1e-6 * peak
+    assert np.abs(pinned - run("cpu")).max() <= 1e-5 * peak
+
+
+def test_channelize_f64_phase_on_card(dev):
+    """At an absolute offset past 2^33 (about 18 minutes at 8 Msps) the
+    card's channelize equals a float64 NumPy evaluation within 1e-5 of its
+    peak: the residual phase is taken in float64."""
+    from gr_lora_tpu_torch.pipeline.channelizer import channelize
+
+    x = np.random.default_rng(12).standard_normal((1 << 15, 2)) \
+        .astype(np.float32)
+    offset = (1 << 33) + 32 * 12_345
+    got = channelize(x, 64, 8e6, sample_offset=offset,
+                     device=dev).cpu().numpy()
+    ref = _channelize_f64(x, 64, 8e6, offset)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_streaming_channelizer_on_card_equals_whole(dev):
+    """StreamingChannelizer on the card, fed irregular host and device
+    blocks, equals one whole-capture channelize within atol 1e-5, its
+    output on the card."""
+    from gr_lora_tpu_torch.pipeline.channelizer import (StreamingChannelizer,
+                                                        channelize)
+
+    total = 200_000
+    x = np.random.default_rng(13).standard_normal((total, 2)) \
+        .astype(np.float32)
+    whole = channelize(x, 16, 2e6, device=dev).cpu().numpy()
+    sc = StreamingChannelizer(16, 2e6, device=dev)
+    outs, lo = [], 0
+    for i, size in enumerate((7, 1111, 50_000, 13, 9000, total)):
+        blk = x[lo:lo + size]
+        out = sc.feed(torch.from_numpy(blk).to(dev) if i % 2 else blk)
+        assert out.device.type == "cuda"
+        outs.append(out.cpu().numpy())
+        lo += size
+        if lo >= total:
+            break
+    streamed = np.concatenate(outs, axis=1)
+    m = min(whole.shape[1], streamed.shape[1])
+    assert m >= whole.shape[1] - 1
+    np.testing.assert_allclose(streamed[:, :m], whole[:, :m], rtol=0,
+                               atol=1e-5)

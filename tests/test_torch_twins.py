@@ -6,6 +6,7 @@ builds every kernel's plan constants itself; these tests pin each one
 equal to the original, so both packages compute from the same numbers.
 """
 
+import io
 import subprocess
 import sys
 
@@ -180,6 +181,21 @@ got = weak_demodulate(modulate_weak(np.arange(4), wc), wc, device="cpu")
 assert [g.tolist() for g in got] == [[0, 1, 2, 3]]
 fn, args = entry(device="cpu")
 assert int(fn(*args)[3]) == 1
+import os, tempfile
+from gr_lora_tpu_torch.apps import gateway
+from gr_lora_tpu_torch.pipeline.channelizer import (channel_frequencies,
+                                                    channelize)
+wc = cfg.replace(sf=7, fft_factor=4)
+wide = 0.4 * modulate(encode(bytes([1, 2, 3, 4]), wc), wc, p=4)
+wide = (wide * np.exp(2j * np.pi * channel_frequencies(4)[1]
+                      * np.arange(len(wide)) / 500e3)).astype(np.complex64)
+assert channelize(to_ri(wide), 4, 500e3, device="cpu").shape[0] == 4
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "wide.cf64")
+    wide.tofile(path)
+    assert gateway.main([path, "--samp-rate", "500e3", "--channels", "4",
+                         "--sfs", "7", "--fft-factor", "4", "--quiet"],
+                        device="cpu") == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gr_lora_tpu"))
 assert not bad, bad
@@ -189,9 +205,10 @@ print("ok")
 
 def test_port_imports_no_jax():
     """Every port module imported, a CPU decode, a CPU gateway feed, a
-    CPU SIC run (models.sic) and the FSM receive path (the loopback, the
-    weak demodulator, entry()), in a fresh interpreter: neither jax nor
-    any module of the JAX package is loaded."""
+    CPU SIC run (models.sic), the FSM receive path (the loopback, the
+    weak demodulator, entry()), a CPU channelize and one gateway.main
+    over a wideband capture, in a fresh interpreter: neither jax nor any
+    module of the JAX package is loaded."""
     res = subprocess.run([sys.executable, "-c", _PORT_RUN],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -204,11 +221,39 @@ def _entry_points():
                                                   pyramid_demodulate)
     from gr_lora_tpu_torch.models.sic import (sic_demodulate,
                                               sic_symbol_streams)
+    from gr_lora_tpu_torch.pipeline import channelizer, frontend, ingest
     from gr_lora_tpu_torch.pipeline.device_ring import DeviceRing
 
     _, cfg = _cfg(7, ff=2)
     iq = np.zeros((4 * cfg.num_samples, 2), np.float32)
+    wide = np.zeros((4096, 2), np.float32)
     return {
+        "channelize": (channelizer.channelize,
+                       lambda **kw: channelizer.channelize(wide, 8, 1e6,
+                                                           **kw)),
+        "StreamingChannelizer": (
+            channelizer.StreamingChannelizer,
+            lambda **kw: channelizer.StreamingChannelizer(8, 1e6, **kw)),
+        "fir_filter": (frontend.fir_filter,
+                       lambda **kw: frontend.fir_filter(wide, np.ones(5),
+                                                        **kw)),
+        "polyphase_resample": (
+            frontend.polyphase_resample,
+            lambda **kw: frontend.polyphase_resample(wide, 0.25, **kw)),
+        "resample_to_receiver_rate": (
+            frontend.resample_to_receiver_rate,
+            lambda **kw: frontend.resample_to_receiver_rate(wide, 1e6, cfg,
+                                                            **kw)),
+        "upsample_to_capture_rate": (
+            frontend.upsample_to_capture_rate,
+            lambda **kw: frontend.upsample_to_capture_rate(iq, 2, 1e6, cfg,
+                                                           **kw)),
+        "replay": (frontend.replay,
+                   lambda **kw: frontend.replay(wide, 1e6, cfg, **kw)),
+        "stream_demodulate": (
+            ingest.stream_demodulate,
+            lambda **kw: ingest.stream_demodulate(
+                cfg, io.BytesIO(bytes(8 * 4096)), **kw)),
         "pyramid_demodulate": (pyramid_demodulate,
                                lambda **kw: pyramid_demodulate(iq, cfg, **kw)),
         "StreamingPyramidDemodulator": (
@@ -235,7 +280,12 @@ def _entry_points():
                                   "StreamingPyramidDemodulator",
                                   "PyramidGateway", "MultiSFPyramidGateway",
                                   "TriggeredPyramidGateway", "DeviceRing",
-                                  "sic_demodulate", "sic_symbol_streams"])
+                                  "sic_demodulate", "sic_symbol_streams",
+                                  "channelize", "StreamingChannelizer",
+                                  "fir_filter", "polyphase_resample",
+                                  "resample_to_receiver_rate",
+                                  "upsample_to_capture_rate", "replay",
+                                  "stream_demodulate"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Each entry point's device defaults to "cuda"; with no CUDA device
     it raises unless the caller passes device="cpu", where it runs."""
