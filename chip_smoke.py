@@ -102,12 +102,33 @@ the final ``ok`` line):
    printed, and the FSM engine: every single exactly once; (d) tx_file ->
    rx_file, tx_file -> rx_file_collision at 1 Msps and rx_stream over a
    250 ksps capture through the ring: the golden PDUs; (e) one pass of
-   (b) under torch.profiler (busy, idle, the ten largest device entries).
+   (b) under torch.profiler (busy, idle, the ten largest device entries);
+11. tracker — the on-device Pyramid tracker (models/device_tracker, the
+   walk kernel csrc/device_tracker.cu): (a) the kernel against its plain
+   version on phase 5's always-on SF8 block (16 channels, 512 hops of
+   K3's lattice) and one north-star event batch at SF10 (K2) and SF8
+   (K1), each with and without split_repeats and on pools small enough
+   that the deviation counters fire (with a synthetic twin lattice whose
+   two packets expire on one hop: every counter fires), as two
+   consecutive blocks and the flush: every state field equal bit for
+   bit, timed beside the plain version; (b) phase 4's north star with ``tracker="device"``: every
+   golden PDU and single, no deviation, K1, K2 and the walk launched,
+   the PDUs against phase 4's, the wall split beside phase 4's and one
+   profiled feed each of the host and device trackers; (c) phase 5's
+   always-on gateway at ``fastp`` and ``fused_direct`` and phase 6's
+   multi-SF gateway with ``tracker="device"``: the host tracker's PDUs,
+   no deviation, the bytes copied to the host against the host
+   tracker's; (d) dist/soak on the gated gateway with split_repeats,
+   the host tracker and then ``tracker="device"`` on the same uncurated
+   traffic: check_soak holds the device run to the host tracker's
+   packets, the injected packets neither decodes printed; (e) apps.gateway --collision --tracker device on phase
+   10's capture equal to the hand chain with the device tracker.
 
-Phases 4-8 and 10 each assert what they check and that their kernels ran: every
-launch count is set to 0 just before a phase and read just after.  The
-line before the last is a JSON object with every kernel's route, source,
-the TPU kernel it replaces, launches, max |delta| against its plain
+Phases 4-8, 10 and 11 each assert what they check and that their kernels
+ran: every launch count is set to 0 just before a phase and read just
+after.  The line before the last is a JSON object with every kernel's
+route, source, the TPU kernel it replaces (the tracker walk: the
+``lax.scan`` it stands for), launches, max |delta| against its plain
 version, times, and the least time the card could take (``bound_ms``:
 the larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32, from this run's
@@ -122,6 +143,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -432,7 +454,8 @@ def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
 
 def main_path(gw, iq_dev, singles, card: str):
     """Phase 4: feed the fixture twice, flush, check the decodes.  Returns
-    (launches, the decoded {channel: {(sf, payload)}}, packet count)."""
+    (launches, the decoded {channel: {(sf, payload)}}, packet count, the
+    second feed's wall split)."""
     import torch
 
     from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
@@ -495,7 +518,7 @@ def main_path(gw, iq_dev, singles, card: str):
           f"decode={w['decode']:.4f}] feed2_samples_per_s={sps:.1f} "
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
           f"launches={launches} k1_launches_by_sf={k1_launches}")
-    return launches, every, npk
+    return launches, every, npk, w
 
 
 def _dense_check(name, kern, plain, rtol):
@@ -793,19 +816,42 @@ def _kernel_modules(module, name: str) -> list:
     return [m for m in module.modules() if type(m) is cls]
 
 
-def always_on(cfg, iq, dev, card: str, launches: dict) -> None:
+def _ao_pdus(pkts, channels: int, what: str) -> dict:
+    """{channel: sorted PDUs} of an always-on run; each golden PDU must
+    decode 4 times on every channel (two collisions, two passes)."""
+    out = {}
+    for c in range(channels):
+        pdus = sorted(bytes(p.result.payload).hex() for p in pkts
+                      if p.channel == c and p.result is not None
+                      and p.result.ok and p.result.crc_ok)
+        if pdus.count(PDU1) != 4 or pdus.count(PDU2) != 4:
+            fail(f"{what}: channel {c} decoded {pdus}, want each golden "
+                 "PDU 4 times")
+        out[c] = pdus
+    return out
+
+
+def always_on(cfg, iq, dev, card: str, launches: dict,
+              tracker: str = "host", host: dict | None = None) -> dict:
     """Phase 5: the always-on gateway once per kernel backend: two passes
     of the fixture in AO_CHUNK chunks (numpy, as bench.py feeds it), then
     a flush; both golden PDUs must decode on every channel for each of
-    the fixture's two collisions in each pass."""
+    the fixture's two collisions in each pass.  Returns {backend:
+    (fetched bytes, {channel: PDUs})}.  Phase 11c runs it again with
+    ``tracker="device"`` over the backends of ``host`` (phase 5's
+    result): the same PDUs on every channel, no deviation."""
     import torch
 
     from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
 
     channels, t = iq.shape[0], iq.shape[1]
+    out = {}
     for backend, name in AO_BACKENDS.items():
+        if host is not None and backend not in host:
+            continue
         gw = PyramidGateway(cfg, channels, block_hops=AO_BLOCK_HOPS,
-                            max_peaks=8, backend=backend, device=dev)
+                            max_peaks=8, backend=backend, tracker=tracker,
+                            device=dev)
         mods = _kernel_modules(gw.lattice, name)
         for m in mods:
             m.launches = 0
@@ -824,31 +870,43 @@ def always_on(cfg, iq, dev, card: str, launches: dict) -> None:
         launches[name] = launches.get(name, 0) + count
         if count <= 0:
             fail(f"always-on {backend}: kernel {name} was not launched")
-        for c in range(channels):
-            pdus = [bytes(p.result.payload).hex() for p in pkts
-                    if p.channel == c and p.result is not None
-                    and p.result.ok and p.result.crc_ok]
-            if pdus.count(PDU1) != 4 or pdus.count(PDU2) != 4:
-                fail(f"always-on {backend}: channel {c} decoded {pdus}, "
-                     "want each golden PDU 4 times")
+        what = f"always-on {backend} tracker={tracker}"
+        pdus = _ao_pdus(pkts, channels, what)
+        out[backend] = (gw.fetched_bytes, pdus)
+        extra = ""
+        if host is not None:
+            if pdus != host[backend][1]:
+                fail(f"{what}: PDUs differ from the host tracker's")
+            dev_s = gw.stats()
+            if dev_s["deviations"]:
+                fail(f"{what}: deviations {dev_s}")
+            cut = host[backend][0] / max(gw.fetched_bytes, 1)
+            extra = (f" same PDUs as phase 5 on every channel, deviations=0,"
+                     f" fetched_bytes={gw.fetched_bytes} (host tracker "
+                     f"{host[backend][0]}, {cut:.1f}x)")
         w = walls[1]
         sps = channels * t / secs[1]
-        print(f"main always-on backend={backend} {channels}ch SF{cfg.sf} "
+        print(f"{'tracker 11c' if host is not None else 'main'} always-on "
+              f"backend={backend} tracker={tracker} {channels}ch SF{cfg.sf} "
               f"block_hops={AO_BLOCK_HOPS} T={t} x2 passes + flush on "
               f"{card}: packets={len(pkts)} pass_s=[{secs[0]:.4f}, "
               f"{secs[1]:.4f}] pass2_wall[dispatch={w['dispatch']:.4f} "
               f"fetch={w['fetch']:.4f} tracker={w['tracker']:.4f} "
               f"decode={w['decode']:.4f}] pass2_samples_per_s={sps:.1f} "
               f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
-              f"launches={{'{name}': {count}}}")
+              f"launches={{'{name}': {count}}}{extra}")
         del gw
         torch.cuda.empty_cache()
+    return out
 
 
-def multi_sf(base, iq, singles, dev, card: str, launches: dict) -> None:
+def multi_sf(base, iq, singles, dev, card: str, launches: dict,
+             tracker: str = "host", host: tuple | None = None) -> tuple:
     """Phase 6: MultiSFPyramidGateway, backend "fastp", 16 ch x SF7-12,
     bench.py's per-SF block_hops; the golden PDUs and every single must
-    decode."""
+    decode.  Returns (fetched bytes, the decoded {channel: {(sf,
+    payload)}}).  Phase 11c runs it again with ``tracker="device"``: the
+    PDUs of ``host`` (phase 6's result), no deviation."""
     import torch
 
     from gr_lora_tpu_torch.dist.pyramid_gateway import MultiSFPyramidGateway
@@ -856,7 +914,8 @@ def multi_sf(base, iq, singles, dev, card: str, launches: dict) -> None:
     channels, t = iq.shape[0], iq.shape[1]
     bh = {sf: max(64, AO_BLOCK_HOPS * 256 // (1 << sf)) for sf in SFS}
     gw = MultiSFPyramidGateway(base, channels, sfs=SFS, block_hops=bh,
-                               max_peaks=8, backend="fastp", device=dev)
+                               max_peaks=8, backend="fastp", tracker=tracker,
+                               device=dev)
     mods = [m for g in gw.gws.values()
             for m in _kernel_modules(g.lattice, "overlap_spectra")]
     for m in mods:
@@ -882,14 +941,26 @@ def multi_sf(base, iq, singles, dev, card: str, launches: dict) -> None:
     if missing or lost:
         fail(f"multi-SF: golden PDUs missing on channels {missing}, "
              f"singles lost on channels {lost}")
+    extra = ""
+    if host is not None:
+        if got != host[1]:
+            fail(f"multi-SF tracker={tracker}: PDUs differ from the host "
+                 f"tracker's: {got} vs {host[1]}")
+        if gw.stats()["deviations"]:
+            fail(f"multi-SF tracker={tracker}: deviations {gw.stats()}")
+        extra = (f" same PDUs as phase 6, deviations=0, fetched_bytes="
+                 f"{gw.fetched_bytes} (host tracker {host[0]}, "
+                 f"{host[0] / max(gw.fetched_bytes, 1):.1f}x)")
     sps = channels * t / feed_s
-    print(f"main multi-SF backend=fastp {channels}ch x SF7-12 T={t} "
+    print(f"{'tracker 11c' if host is not None else 'main'} multi-SF "
+          f"backend=fastp tracker={tracker} {channels}ch x SF7-12 T={t} "
           f"block_hops={bh} feed + flush on {card}: packets={len(pkts)} "
           f"feed_s={feed_s:.4f} feed_wall[dispatch={w['dispatch']:.4f} "
           f"fetch={w['fetch']:.4f} tracker={w['tracker']:.4f} "
           f"decode={w['decode']:.4f}] feed_samples_per_s={sps:.1f} "
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
-          f"launches={{'overlap_spectra': {count}}}")
+          f"launches={{'overlap_spectra': {count}}}{extra}")
+    return gw.fetched_bytes, got
 
 
 def probes(dev, card: str, report: dict, launches: dict) -> None:
@@ -1799,16 +1870,27 @@ def _yield(decoded, injected) -> str:
             f"{', '.join(parts)})")
 
 
-def _wide_gateway(dev, backend: str):
+def _wide_gateway(dev, backend: str, tracker: str = "host"):
     """The gated gateway of phase 10's chains, as ``apps.gateway
-    --collision --max-payload-len 16`` builds it."""
+    --collision --max-payload-len 16 [--tracker device]`` builds it."""
     from gr_lora_tpu_torch.dist.collision_gateway import \
         TriggeredPyramidGateway
 
     return TriggeredPyramidGateway(base_config(), CHANNELS,
                                    sfs=SFS, max_payload_len=16,
-                                   backend=backend, tracker="host",
+                                   backend=backend, tracker=tracker,
                                    device=dev)
+
+
+def _kernel_mods(gw) -> dict:
+    """{"rdft_peaks": [K1 modules], "overlap_peaks": [K2 modules]} of a
+    gated gateway's lattices."""
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+
+    kinds = {"rdft_peaks": RdftPeaks, "overlap_peaks": OverlapPeaks}
+    return {name: [m for sf in SFS for m in gw.lattice(sf).modules()
+                   if isinstance(m, cls)] for name, cls in kinds.items()}
 
 
 def _hand_chain(path: str, gw, dev, udp=None):
@@ -1965,13 +2047,8 @@ def wideband_chain(path: str, injected, dev, card: str, launches: dict):
     decoded, and the yield (decoded / injected) printed: the Pyramid
     decoder does not decode every random pair or single (ROADMAP Queue
     3), so all 192 once is not asserted.  Returns the UDP datagrams."""
-    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
-    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
-
     gw = _wide_gateway(dev, "fused")
-    kinds = {"rdft_peaks": RdftPeaks, "overlap_peaks": OverlapPeaks}
-    mods = {name: [m for sf in SFS for m in gw.lattice(sf).modules()
-                   if isinstance(m, cls)] for name, cls in kinds.items()}
+    mods = _kernel_mods(gw)
     for ms in mods.values():
         for m in ms:
             m.launches = 0
@@ -2212,10 +2289,11 @@ def wideband_profile(path: str, tmp: str, dev, card: str) -> None:
           f"{pinned} pinned, none pageable")
 
 
-def wideband_phase(dev, card: str, launches: dict) -> None:
-    """Phase 10: the wideband north star, one SDR stream end to end."""
+def wideband_phase(dev, card: str, launches: dict, tmp: str):
+    """Phase 10: the wideband north star, one SDR stream end to end.  The
+    capture is written to ``tmp``; returns (its path, the injected
+    packets) for phase 11e."""
     import os
-    import tempfile
 
     import torch
 
@@ -2224,27 +2302,398 @@ def wideband_phase(dev, card: str, launches: dict) -> None:
     print(f"wideband capture {CHANNELS}ch x SF7-12, {WB_SAMPLES} samples at "
           f"{WB_FS:.0f} sps: {len(injected)} packets, payloads drawn from "
           "default_rng(0) under the four fixture rules")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "wideband.cf64")
-        wide.tofile(path)
-        marks.append(time.perf_counter())
-        with torch.no_grad():
-            wideband_channelizer(wide, dev, card)
-        del wide
-        torch.cuda.empty_cache()
-        marks.append(time.perf_counter())
-        chain = wideband_chain(path, injected, dev, card, launches)
-        marks.append(time.perf_counter())
-        wideband_cli(path, injected, chain, dev, card)
-        marks.append(time.perf_counter())
-        reference_flowgraphs(tmp, dev, card)
-        marks.append(time.perf_counter())
-        wideband_profile(path, tmp, dev, card)
-        marks.append(time.perf_counter())
+    path = os.path.join(tmp, "wideband.cf64")
+    wide.tofile(path)
+    marks.append(time.perf_counter())
+    with torch.no_grad():
+        wideband_channelizer(wide, dev, card)
+    del wide
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    chain = wideband_chain(path, injected, dev, card, launches)
+    marks.append(time.perf_counter())
+    wideband_cli(path, injected, chain, dev, card)
+    marks.append(time.perf_counter())
+    reference_flowgraphs(tmp, dev, card)
+    marks.append(time.perf_counter())
+    wideband_profile(path, tmp, dev, card)
+    marks.append(time.perf_counter())
     parts = np.diff(marks)
     print(f"wideband phase 10 total_s={marks[-1] - marks[0]:.2f} (capture "
           f"{parts[0]:.1f}, 10a {parts[1]:.1f}, 10b {parts[2]:.1f}, 10c "
           f"{parts[3]:.1f}, 10d {parts[4]:.1f}, 10e {parts[5]:.1f})")
+    return path, injected
+
+
+#: Phase 11d's soak: the traffic of the JAX package's long soak (bench.py
+#: --mode soak, :1080-1084: seed 11, 2 % duty, a golden collision every
+#: third SF8 injection, noise 0.002) in the product config (split_repeats,
+#: uncurated payloads), TRACKER_SOAK_CHANNELS channels at SF7-8 streamed
+#: in TRACKER_SOAK_CHUNKS chunks of 96 SF8 symbols (the CPU soak tests'
+#: chunking: a ring trim every feed).
+TRACKER_SOAK = dict(seed=11, duty_target=0.02, collision_every=3,
+                    noise_sigma=0.002)
+TRACKER_SOAK_CHANNELS = 16
+TRACKER_SOAK_CHUNKS = 384
+#: Pools small enough that the deviation counters fire: on the real
+#: lattices tracks, packet slots, retirements a hop and symbols a packet
+#: (TINY_POOLS), output slots (TINY_OUTPUTS); on the twin lattice, where
+#: two packets expire on one hop, expiries a hop (TINY_OUTPUTS).
+TINY_POOLS = dict(track_pool=4, packet_pool=1, expire_per_hop=1,
+                  max_symbols=8, out_pool=1, finalize_per_hop=1)
+TINY_OUTPUTS = dict(out_pool=1, expire_per_hop=1)
+
+
+def _state_bytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def _same_state(kern: dict, plain: dict, what: str) -> None:
+    """Every field of two tracker states equal, the f32 ones bit for
+    bit."""
+    for name, t in kern.items():
+        a, b = t.cpu().numpy(), plain[name].cpu().numpy()
+        if a.dtype.kind == "f":
+            a, b = a.view(np.int32), b.view(np.int32)
+        if not np.array_equal(a, b):
+            fail(f"{what}: the tracker kernel's {name} differs from the "
+                 f"plain version's at {np.argwhere(a != b)[:4].tolist()}")
+
+
+def _tracker_lattices(gw, iq_dev, singles, ao_cfg, ao_block):
+    """Phase 11a's inputs: (name, config, [C, H, 8] lattice) for phase 5's
+    always-on SF8 block (16 channels, 512 hops of K3's lattice, fed as
+    two blocks) and one north-star event batch at SF10 (K2) and SF8
+    (K1), the windows the gated gateway hands its tracker."""
+    from gr_lora_tpu_torch.models.pyramid import peak_lattice_fn
+
+    hops = 512
+    lat = peak_lattice_fn(ao_cfg, hops, 8, "rdft").to(ao_block.device)
+    n = ao_cfg.num_samples
+    out = [("always-on SF8 K3", ao_cfg,
+            lat(ao_block[:, :hops * n // 8 + n - n // 8]))]
+    for sf in (10, 8):
+        st = gw.sf_states[sf]
+        x = _event_windows(iq_dev, gw, singles, sf, gw.event_batch,
+                           gw._win_samples(st))
+        out.append((f"north-star SF{sf} {'K1' if sf < 10 else 'K2'}",
+                    st.cfg, gw.lattice(sf)(x)))
+    return [(name, cfg, tuple(x.contiguous() for x in lat))
+            for name, cfg, lat in out]
+
+
+def _twin_lattice(cfg, channels: int, dev):
+    """[C, 200, 8] synthetic lattice: on every channel two packet-shaped
+    track runs (a 44-hop preamble, 12 four-hop data symbols) on opposite
+    halves of the band with the same timing, so both packets expire on
+    one hop (tests/test_torch_device_tracker.py's twin)."""
+    import torch
+
+    k = cfg.bin_size
+    drift = k // 8
+    rng = np.random.default_rng(0)
+    bins = np.zeros((channels, 200, 8), np.int32)
+    h = np.zeros((channels, 200, 8), np.float32)
+    for j in range(2):
+        for i in range(44):
+            bins[:, 4 + i, j] = (j * (k // 2) + 5 + i * drift) % k
+            h[:, 4 + i, j] = 20.0 + 10 * j
+        for sym in range(12):
+            b = int(rng.integers(0, k // 2)) + j * (k // 2)
+            for i in range(4):
+                bins[:, 50 + 8 * sym + i, j] = (b + i * drift) % k
+                h[:, 50 + 8 * sym + i, j] = 20.0 + 10 * j
+    valid = h > 0
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (bins, h, 0.8 * h, valid))
+
+
+def tracker_parity(lattices, report: dict) -> None:
+    """Phase 11a: the tracker walk kernel against its plain version on the
+    card, on each lattice with and without split_repeats and on tiny
+    pools: two consecutive blocks (the lattice's halves, the state
+    carried across) and the flush, every state field equal bit for bit
+    after each.  Times one kernel call on the first block (CUDA events,
+    the state carried on) beside the plain version's."""
+    import torch
+
+    from gr_lora_tpu_torch.models.device_tracker import (_DEVIATION_COUNTERS,
+                                                         flush_hops)
+    from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
+
+    fired = set()
+    twin = ("twin", lattices[0][1],
+            _twin_lattice(lattices[0][1], 16, lattices[0][2][0].device))
+    for name, cfg, lat in (*lattices, twin):
+        c, hops, m = lat[0].shape
+        half = [tuple(x[:, :hops // 2].contiguous() for x in lat),
+                tuple(x[:, hops // 2:].contiguous() for x in lat)]
+        z = torch.zeros((c, flush_hops(), m), dtype=torch.int32,
+                        device=lat[0].device)
+        flush = (z, z.float(), z.float(), z.bool())
+        runs = (("", {}), (" split_repeats", {"split_repeats": True}),
+                (" tiny pools", TINY_POOLS),
+                (" tiny outputs", TINY_OUTPUTS))
+        for label, pools in (runs[3:] if name == "twin" else runs):
+            walk = TrackerWalk(cfg, m, **pools)
+            kern, plain = walk.init_state(c, z.device), \
+                walk.init_state(c, z.device)
+            plain_ms = None
+            for blk in (*half, flush):
+                walk.kernel(kern, *blk)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                walk.plain(plain, *blk)
+                stop.record()
+                torch.cuda.synchronize()
+                plain_ms = plain_ms or start.elapsed_time(stop)
+                _same_state(kern, plain, name + label)
+            packets = int(kern["o_count"].sum())
+            devs = {k: int(kern[k].sum()) for k in _DEVIATION_COUNTERS
+                    if int(kern[k].sum())}
+            fired |= set(devs)
+            if not pools.get("expire_per_hop") and (devs or not packets):
+                fail(f"tracker 11a {name}{label}: packets={packets} "
+                     f"deviations={devs}")
+            line = (f"tracker 11a {name}{label} [{c}, {hops}, {m}] x2 "
+                    f"blocks + flush: state equal bit for bit, packets="
+                    f"{packets} deviations={devs or 0}")
+            if label:
+                print(line)
+                continue
+            st = walk.init_state(c, z.device)
+            ms = _time_ms(lambda: walk.kernel(st, *half[0]), 5)
+            nbytes = _nbytes(*half[0]) + 2 * _state_bytes(st)
+            bound = _bound(nbytes)
+            print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound[0]:.6f} (lattice + 2 x state "
+                  f"{nbytes} B)")
+            report["device_tracker"].append(_row(
+                0.0, ms, plain_ms, f"{name} [{c}, {hops // 2}, {m}]", bound))
+    if fired != set(_DEVIATION_COUNTERS):
+        fail(f"tracker 11a: the tiny pools fired {sorted(fired)}, not "
+             f"every deviation counter")
+
+
+def _wall_txt(w: dict) -> str:
+    return " ".join(f"{k}={v:.4f}" for k, v in w.items())
+
+
+def tracker_north_star(gw, iq_dev, singles, ns_pdus: dict, ns_packets: int,
+                       ns_wall: dict, dev, card: str,
+                       launches: dict) -> None:
+    """Phase 11b: phase 4's north star with ``tracker="device"``: every
+    golden PDU and single on every channel, no deviation, K1, K2 and the
+    tracker launched; the packets against phase 4's (the host path's
+    bf16-packed heights may cross a gate the f32 ones do not: every
+    difference printed, none in a golden PDU or single), the second
+    feed's wall split beside phase 4's, and one profiled pass each of a
+    host-tracker and this gateway (device busy and idle)."""
+    import torch
+
+    from gr_lora_tpu_torch.ops import device_tracker as walk_ops
+
+    mods = _kernel_mods(gw)
+    for ms in mods.values():
+        for m in ms:
+            m.launches = 0
+    walk_ops.launches = 0
+    gw.wall_reset()
+    feeds, walls = [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        feeds.append(gw.feed(iq_dev))
+        torch.cuda.synchronize()
+        walls.append(gw.wall_reset())
+    tail = gw.flush()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {name: sum(m.launches for m in ms) for name, ms in mods.items()}
+    counts["device_tracker"] = walk_ops.launches
+    for name, count in counts.items():
+        if count <= 0:
+            fail(f"tracker north star: kernel {name} was not launched")
+        launches[name] = launches.get(name, 0) + count
+    for i, pk in enumerate(feeds):
+        got = _ok_pdus(pk)
+        missing = [c for c in range(CHANNELS)
+                   if not {(8, PDU1), (8, PDU2)} <= got.get(c, set())]
+        if missing:
+            fail(f"tracker feed {i + 1}: golden PDUs missing on channels "
+                 f"{missing}")
+    every = _ok_pdus(feeds[0] + feeds[1] + tail)
+    lost = [c for c, (hx, _) in singles.items()
+            if not any(sf == SFS[c % len(SFS)] and hx in h
+                       for sf, h in every.get(c, set()))]
+    if lost:
+        fail(f"tracker north star: singles not decoded on channels {lost}")
+    if gw.stats()["device_deviations"]:
+        fail(f"tracker north star: deviations {gw.stats()}")
+    diffs = {c: (sorted(ns_pdus.get(c, set()) - every.get(c, set())),
+                 sorted(every.get(c, set()) - ns_pdus.get(c, set())))
+             for c in range(CHANNELS)
+             if ns_pdus.get(c, set()) != every.get(c, set())}
+    npk = sum(len(f) for f in feeds) + len(tail)
+    host_gw = _wide_gateway(dev, "fused")
+    host_gw.feed(iq_dev)                      # builds its modules
+    runs = {}
+    for name, g in (("host", host_gw), ("device", gw)):
+        g.wall_reset()
+        wall, busy, split, _ = _profiled_pass(lambda: g.feed(iq_dev))
+        runs[name] = (wall, busy, split, g.wall_reset())
+    print(f"tracker 11b north-star {CHANNELS}ch x SF7-12 T={iq_dev.shape[1]}"
+          f" x2 feeds + flush tracker=device on {card}: packets={npk} "
+          f"(phase 4, host tracker: {ns_packets}) total_s={secs:.4f} "
+          f"deviations=0 every golden PDU and single decoded; PDU "
+          f"differences from phase 4 (only host, only device) by channel: "
+          f"{diffs or 'none'}; feed2_wall device[{_wall_txt(walls[1])}] "
+          f"host (phase 4)[{_wall_txt(ns_wall)}] launches={counts}")
+    for name, (wall, busy, split, w) in runs.items():
+        print(f"tracker 11b profiled feed tracker={name} on {card}: "
+              f"wall={wall:.4f} s device_busy={busy:.2f} ms "
+              f"({100 * busy / (1e3 * wall):.1f} %) idle="
+              f"{100 - 100 * busy / (1e3 * wall):.1f} % wall[{_wall_txt(w)}]"
+              f" device ms by kind: {_split_txt(split)}")
+    del host_gw
+    torch.cuda.empty_cache()
+
+
+def tracker_soak(dev, card: str) -> int:
+    """Phase 11d: dist/soak's run_gateway_soak on the gated gateway with
+    split_repeats (uncurated traffic, TRACKER_SOAK), once with the host
+    tracker and once with ``tracker="device"`` on the same traffic.
+    check_soak, its assertions unchanged, holds the device run to the
+    host tracker's packets: each decoded once, nothing else, the streaming
+    state bounded, no dropped event, no deviation, the ring settled; the
+    host run decodes nothing twice and nothing not injected.  The Pyramid
+    decoder does not decode every uncurated packet (payloads with both
+    adjacent-equal and adjacent-value symbols, in both packages; ROADMAP
+    Queue 3): the injected packets neither tracker decodes are printed.
+    Returns the device run's tracker launches."""
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+    from gr_lora_tpu_torch.dist.soak import check_soak, run_gateway_soak
+    from gr_lora_tpu_torch.ops import device_tracker as walk_ops
+
+    chans, sfs = TRACKER_SOAK_CHANNELS, (7, 8)
+    runs = {}
+    for tracker in ("host", "device"):
+        gw = TriggeredPyramidGateway(base_config(), chans, sfs=sfs,
+                                     max_payload_len=8, tracker=tracker,
+                                     scan_chunk_samples=1 << 15,
+                                     split_repeats=True, device=dev)
+        chunk = 96 * gw.sf_states[8].cfg.num_samples
+        before = walk_ops.launches
+        t0 = time.perf_counter()
+        soak = run_gateway_soak(gw, chans, sfs, TRACKER_SOAK_CHUNKS, chunk,
+                                **TRACKER_SOAK)
+        runs[tracker] = (*soak, gw, time.perf_counter() - t0,
+                         walk_ops.launches - before)
+    expected, host_got, _, _, host_wall, _ = runs["host"]
+    _, got, log, gw, wall, count = runs["device"]
+    extra = {k: v for k, v in host_got.items() if v > expected.get(k, 0)}
+    if extra:
+        fail(f"tracker soak: the host tracker decoded {extra} more often "
+             "than injected")
+    try:
+        check_soak(host_got, got, log, gw,
+                   min_packets=chans * TRACKER_SOAK_CHUNKS // 16)
+    except AssertionError as e:
+        fail(f"tracker soak against the host tracker's packets: {e}")
+    streamed = TRACKER_SOAK_CHUNKS * chunk
+    if streamed <= 4 * gw._ring.cap:
+        fail(f"tracker soak streamed {streamed} samples, ring {gw._ring.cap}")
+    lost = sorted((c, p.hex()) for c, p in expected
+                  if host_got.get((c, p), 0) < expected[(c, p)])
+    air = streamed / 250e3
+    print(f"tracker 11d soak split_repeats {chans}ch x SF7-8, "
+          f"{TRACKER_SOAK_CHUNKS} chunks of {chunk} samples ({air:.2f} s of "
+          f"air a channel, {streamed / gw._ring.cap:.1f} ring lengths) on "
+          f"{card}: injected={sum(expected.values())} host tracker "
+          f"decoded={sum(host_got.values())} (wall {host_wall:.4f} s), "
+          f"tracker=device the same packets, each once, no phantom, "
+          f"deviations=0, ring_cap={gw._ring.cap}, wall={wall:.4f} s "
+          f"x_realtime={air / wall:.3f}; injected, decoded by neither "
+          f"tracker: {len(lost)} {lost}")
+    return count
+
+
+def tracker_cli(path: str, injected, dev, card: str) -> int:
+    """Phase 11e: apps.gateway.main --collision --tracker device on phase
+    10's capture (its default backend, xla) equal to the hand chain with
+    ``tracker="device"`` at xla, none twice.  Returns the tracker
+    launches."""
+    from gr_lora_tpu_torch.ops import device_tracker as walk_ops
+
+    before = walk_ops.launches
+    argv = [path, "--samp-rate", str(WB_FS), "--channels", str(CHANNELS),
+            "--sfs", ",".join(map(str, SFS)), "--quiet", "--collision",
+            "--max-payload-len", "16", "--tracker", "device"]
+    hand, _, hand_wall = _chain_datagrams(
+        path, _wide_gateway(dev, "xla", "device"), dev)
+    rc, got, wall, stats = _cli(argv, dev)
+    if rc != 0:
+        fail(f"gateway --collision --tracker device exited {rc}: {stats}")
+    _same_datagrams(got, hand, "gateway --tracker device vs the hand chain "
+                               "(xla, tracker=device)")
+    decoded, _ = _check_injected(got, injected, "gateway --tracker device",
+                                 every=False)
+    air = WB_SAMPLES / WB_FS
+    print(f"tracker 11e gateway --collision --tracker device (backend xla) "
+          f"on {card}: datagrams={len(got)} equal to the hand chain with "
+          f"tracker=device (its wall {hand_wall:.4f} s), "
+          f"{_yield(decoded, injected)}, none twice; wall={wall:.4f} s "
+          f"x_realtime={air / wall:.3f} ({stats})")
+    return walk_ops.launches - before
+
+
+def tracker_phase(iq, singles, ns, ao, msf, wide, dev, card: str,
+                  report: dict, launches: dict) -> None:
+    """Phase 11: the device tracker (models/device_tracker, the walk
+    kernel csrc/device_tracker.cu)."""
+    import torch
+
+    marks = [time.perf_counter()]
+    iq_dev = torch.from_numpy(iq).to(dev)
+    gw = _wide_gateway(dev, "fused", "device")
+    ao_cfg, ao_iq, ao_host, msf_iq, msf_singles, msf_host = ao + msf
+    n = ao_cfg.num_samples
+    block = AO_BLOCK_HOPS * n // 8 + n - n // 8
+    with torch.no_grad():
+        lattices = _tracker_lattices(
+            gw, iq_dev, singles, ao_cfg,
+            torch.from_numpy(ao_iq[:, :block]).to(dev))
+        tracker_parity(lattices, report)
+    del lattices
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    tracker_north_star(gw, iq_dev, singles, *ns, dev, card, launches)
+    del gw, iq_dev
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    from gr_lora_tpu_torch.ops import device_tracker as walk_ops
+    before = walk_ops.launches
+    always_on(ao_cfg, ao_iq, dev, card, launches, tracker="device",
+              host={b: ao_host[b] for b in ("fastp", "fused_direct")})
+    multi_sf(base_config(), msf_iq, msf_singles, dev, card, launches,
+             tracker="device", host=msf_host)
+    counts = {"11b": launches["device_tracker"],
+              "11c": walk_ops.launches - before}
+    marks.append(time.perf_counter())
+    counts["11d"] = tracker_soak(dev, card)
+    marks.append(time.perf_counter())
+    counts["11e"] = tracker_cli(*wide, dev, card)
+    marks.append(time.perf_counter())
+    for part, count in counts.items():
+        if count <= 0:
+            fail(f"tracker {part}: the tracker kernel was not launched")
+    launches["device_tracker"] = sum(counts.values())
+    parts = np.diff(marks)
+    print(f"tracker phase 11 total_s={marks[-1] - marks[0]:.2f} (11a "
+          f"{parts[0]:.1f}, 11b {parts[1]:.1f}, 11c {parts[2]:.1f}, 11d "
+          f"{parts[3]:.1f}, 11e {parts[4]:.1f}) tracker launches="
+          f"{launches['device_tracker']} {counts}")
 
 
 #: Where each peak kernel's top-M runs.
@@ -2281,6 +2730,9 @@ META = {
                    "bench.py:448"),
     "overlap_probe": ("cuda", "gr_lora_tpu_torch/csrc/probes.cu",
                       "tools/overlap_probe.py:59"),
+    # A lax.scan, not a Pallas kernel (models/device_tracker.py:85).
+    "device_tracker": ("cuda", "gr_lora_tpu_torch/csrc/device_tracker.cu",
+                       "gr_lora_tpu/models/device_tracker.py:85"),
 }
 
 
@@ -2350,13 +2802,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # Phase 4: the north-star main path (K1, K2).
-    launches, ns_pdus, ns_packets = main_path(gw, iq_dev, singles, card)
+    launches, ns_pdus, ns_packets, ns_wall = main_path(gw, iq_dev, singles,
+                                                       card)
     del gw
     torch.cuda.empty_cache()
 
     # Phases 5-6: the always-on paths (K3, K4b, K4, K5, K6).
-    always_on(ao_cfg, ao_iq, dev, card, launches)
-    multi_sf(base_config(), msf_iq, msf_singles, dev, card, launches)
+    ao_host = always_on(ao_cfg, ao_iq, dev, card, launches)
+    msf_host = multi_sf(base_config(), msf_iq, msf_singles, dev, card,
+                        launches)
     torch.cuda.empty_cache()
 
     # Phase 7: the probes (P1, P2).
@@ -2374,9 +2828,16 @@ def main() -> None:
     del iq_dev
     torch.cuda.empty_cache()
 
-    # Phase 10: the wideband north star (K1, K2 in its hand chain).
-    wideband_phase(dev, card, launches)
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # Phase 10: the wideband north star (K1, K2 in its hand chain).
+        wide = wideband_phase(dev, card, launches, tmp)
+        torch.cuda.empty_cache()
+        # Phase 11: the device tracker (its walk kernel, K1, K2, K4, K5).
+        tracker_phase(iq, singles, (ns_pdus, ns_packets, ns_wall),
+                      (ao_cfg, ao_iq, ao_host),
+                      (msf_iq, msf_singles, msf_host), wide, dev, card,
+                      report, launches)
+        torch.cuda.empty_cache()
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "gr_lora_tpu"))

@@ -240,8 +240,8 @@ def main(argv=None, device="cuda") -> int:
     ap.add_argument("--tracker", choices=["host", "device"],
                     default="host",
                     help="collision mode: host C++ tracker bank vs the "
-                         "on-device tracker (not ported yet: raises "
-                         "NotImplementedError)")
+                         "on-device tracker (only finished packets come "
+                         "to the host)")
     add_config_args(ap)
     args = ap.parse_args(argv)
     base = config_from_args(args)

@@ -36,6 +36,9 @@ PTXAS_PATH = BUILD_DIR / "ptxas.txt"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
+#: Flags of one source beside COMPILE_FLAGS: the tracker rounds every f32
+#: operation on its own, as the JAX package does (no FMA contraction).
+SOURCE_FLAGS = {"device_tracker.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +56,7 @@ SIGNATURES = {
     "grl_chunk_spectra": [_P] * 6 + [_I] * 6 + [_P],
     "grl_rate_probe": [_P] * 4 + [_I] * 4 + [_P],
     "grl_overlap_probe": [_P] * 6 + [_I] * 7 + [_P],
+    "grl_device_tracker": [_P, _P, _F] + [_P] * 5,
 }
 
 _lock = threading.Lock()
@@ -120,8 +124,9 @@ def build() -> Path:
             objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
             tmp = LIB_PATH.with_suffix(f".{tag}.tmp")
             try:
-                report = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(obj),
-                                    str(src)]
+                report = _run_all([[nvcc, *COMPILE_FLAGS,
+                                    *SOURCE_FLAGS.get(src.name, ()), "-o",
+                                    str(obj), str(src)]
                                    for src, obj in zip(sources(), objs)])
                 _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                            *map(str, objs)]])

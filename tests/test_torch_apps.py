@@ -1,7 +1,8 @@
 """The port's CLI apps and PduSink on the CPU, twins of tests/test_apps.py
 and tests/test_pdu_sink.py: tx_file -> rx_file / rx_file_collision round
 trips, txrx_sim on the command line and as a UDP service, rx_stream over
-the ring and without it, the sink's CRC filter and its drains.
+the ring and without it, the sink's CRC filter and its drains; the SVG
+plots and the whitening consensus tool equal to the JAX package's.
 
 Every app runs with ``device="cpu"``; UDP uses ephemeral ports only (the
 JAX twins bind fixed ports and may run at the same time in another
@@ -177,3 +178,51 @@ def test_sink_drain_multi_sf():
     assert sink.drain_multi_sf(pkts) == 1
     assert got == [PduEvent(2, 8, 1234, bytes(pkts[0].result.payload),
                             True)]
+
+
+@pytest.mark.parametrize("name,artifact", [
+    ("plot_per", "docs/per_curves.json"),
+    ("plot_collision", "docs/collision_recovery.json")])
+def test_plot_equals_jax(tmp_path, capsys, name, artifact):
+    """The port's SVG renderers write the JAX package's SVG, byte for
+    byte, from the repo's artifacts."""
+    import importlib
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    svgs = []
+    for pkg in ("gr_lora_tpu", "gr_lora_tpu_torch"):
+        mod = importlib.import_module(f"{pkg}.apps.{name}")
+        dst = tmp_path / f"{pkg}.svg"
+        assert mod.main([str(root / artifact), str(dst)]) == 0
+        svgs.append(dst.read_text())
+    assert svgs[0] == svgs[1] and svgs[0].startswith("<svg")
+    assert capsys.readouterr().out.count("wrote") == 2
+
+
+def test_whitening_consensus_equals_jax(tmp_path, capsys):
+    """consensus() and the CLI's printout equal the JAX tool's on noisy
+    observations of the whitening sequence; an empty dump fails."""
+    from gr_lora_tpu.apps import whitening_consensus as jwc
+    from gr_lora_tpu_torch.apps import whitening_consensus as wc
+    from gr_lora_tpu_torch.core.whitening import WHITENING_SEQUENCE
+
+    rng = np.random.default_rng(4)
+    true = bytes(WHITENING_SEQUENCE[:40])
+    obs = []
+    for i in range(7):
+        o = bytearray(true[:40 - (i % 3)])
+        o[int(rng.integers(0, len(o)))] ^= 1 << int(rng.integers(0, 8))
+        obs.append(bytes(o))
+    assert wc.consensus(obs) == jwc.consensus(obs) == true
+    dump = tmp_path / "dump.txt"
+    dump.write_text("\n".join(" ".join(f"{b:02x}" for b in o)
+                              for o in obs) + "\n\n")
+    outs = []
+    for mod in (jwc, wc):
+        assert mod.main([str(dump)]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "0x" in outs[0]
+    empty = tmp_path / "empty.txt"
+    empty.write_text("\n")
+    assert wc.main([str(empty)]) == 1

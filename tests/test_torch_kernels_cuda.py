@@ -17,13 +17,20 @@ launch by launch, for both machines.  The RX front end, which has no
 kernel either: channelize and fir_filter run in full f32 whatever the
 TF32 flags, channelize's phase holds float64 precision at a large sample
 offset, and the streaming channelizer equals one whole call on the card.
+The Pyramid tracker's walk (csrc/device_tracker.cu): its whole state
+after two consecutive blocks, on real lattices of several channels and
+on synthetic ones, with and without split_repeats and on pools small
+enough that every deviation counter fires, equals the plain version's
+bit for bit; the always-on gateway with ``tracker="device"`` on the card
+decodes what it decodes on the CPU.
 
 Tolerances: K1, K3, K4b, K4 and K6's plain versions are the same
 bf16-operand / f32-accumulate class in another summation order (heights
 rtol 1e-3; a peak may differ only where an f32 tie decides it, see
 peak_epilogue.compare_peaks; the dense K3 / K4b / K6 spectra within 1e-4
 of their largest value; P1's value rtol 1e-3).  K2, K5, the epilogue and
-P2's chain round as their plain versions do and must equal them exactly.
+P2's chain round as their plain versions do and must equal them exactly;
+so does the tracker walk, every f32 field bit for bit.
 """
 
 import numpy as np
@@ -818,3 +825,149 @@ def test_streaming_channelizer_on_card_equals_whole(dev):
     assert m >= whole.shape[1] - 1
     np.testing.assert_allclose(streamed[:, :m], whole[:, :m], rtol=0,
                                atol=1e-5)
+
+
+def _tracker_lattice(dev, channels=4):
+    """[C, H, 8] peak lattices on the card: per channel the golden SF8
+    collision (ff 8, p 2) at a channel-specific offset in noise, one
+    channel's replaced by a synthetic lattice of packet-shaped runs and
+    clutter (the tracker tests' fuzz shape)."""
+    from gr_lora_tpu_torch.models.pyramid import peak_lattice_fn
+
+    cfg = _cfg(8).replace(payload_len=8)
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                         pad_back=0)
+    total = 1000 + 3 * 777 + 22 * n + 2 * (13 * n + 18 * n) + 8 * n
+    rng = np.random.default_rng(5)
+    iq = (0.01 * (rng.standard_normal((channels, total))
+                  + 1j * rng.standard_normal((channels, total)))
+          ).astype(np.complex64)
+    for c in range(channels):
+        off = 1000 + c * 777
+        iq[c, off:off + len(p1)] += p1
+        o2 = off + 16 * n + 4 * n // 8 + 204
+        iq[c, o2:o2 + len(p2)] += p2
+    nh = num_hops_for(cfg, total)
+    lat = peak_lattice_fn(cfg, nh, 8).to(dev)
+    with torch.no_grad():
+        bins, h, hs, valid = lat(torch.from_numpy(to_ri(iq)).to(dev))
+    k = cfg.bin_size
+    b = torch.zeros(nh, 8, dtype=torch.int32)
+    hv = torch.zeros(nh, 8)
+    v = torch.zeros(nh, 8, dtype=torch.bool)
+    for t0 in (5, 120):
+        b0 = int(rng.integers(0, k))
+        for i in range(44):
+            b[t0 + i, 0], hv[t0 + i, 0], v[t0 + i, 0] = \
+                (b0 + i * k // 8) % k, 30.0 + t0, True
+        for s_ in range(12):
+            bs = int(rng.integers(0, k))
+            for i in range(int(rng.integers(2, 9))):
+                t = t0 + 50 + 8 * s_ + i
+                b[t, 1], hv[t, 1], v[t, 1] = (bs + i * k // 8) % k, \
+                    30.0 + t0, True
+    clutter = rng.random((nh, 8)) < 0.1
+    b[:, 2:] = torch.from_numpy(rng.integers(0, k, (nh, 6)).astype(np.int32))
+    hv[:, 2:] = torch.from_numpy(rng.uniform(5.5, 12, (nh, 6))
+                                 .astype(np.float32))
+    v[:, 2:] = torch.from_numpy(clutter[:, 2:])
+    bins[-1], h[-1], hs[-1], valid[-1] = (b.to(dev), hv.to(dev),
+                                          (0.8 * hv).to(dev), v.to(dev))
+    return cfg, tuple(x.contiguous() for x in (bins, h, hs, valid))
+
+
+_TINY = dict(track_pool=4, packet_pool=1, expire_per_hop=1, max_symbols=8,
+             out_pool=1, finalize_per_hop=1)
+
+
+def _same_state(a, b):
+    from gr_lora_tpu_torch.ops.device_tracker import STATE_FIELDS
+
+    for name, _ in STATE_FIELDS:
+        x, y = a[name].cpu().numpy(), b[name].cpu().numpy()
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int32), y.view(np.int32)
+        assert np.array_equal(x, y), (name, np.argwhere(x != y)[:4])
+
+
+@pytest.mark.parametrize("pools", [{}, _TINY], ids=["pools", "tiny"])
+@pytest.mark.parametrize("split", [False, True])
+def test_device_tracker_kernel_equals_plain(dev, split, pools):
+    """The walk over two consecutive blocks and a flush: every state field
+    bit for bit, the packets out, and (tiny pools) the counters fired."""
+    from gr_lora_tpu_torch.models.device_tracker import flush_hops
+    from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
+
+    cfg, lat = _tracker_lattice(dev)
+    walk = TrackerWalk(cfg, 8, split_repeats=split, **pools)
+    c, nh = lat[0].shape[:2]
+    kern, plain = walk.init_state(c, dev), walk.init_state(c, dev)
+    z = torch.zeros((c, flush_hops(), 8), dtype=torch.int32, device=dev)
+    flush = (z, z.float(), z.float(), z.bool())
+    for blk in ([x[:, :nh // 2].contiguous() for x in lat],
+                [x[:, nh // 2:].contiguous() for x in lat], flush):
+        walk.kernel(kern, *blk)
+        walk.plain(plain, *blk)
+        torch.cuda.synchronize()
+        _same_state(kern, plain)
+    assert int(kern["o_count"][:3].min()) >= 1
+    dev_total = sum(int(kern[k].sum()) for k in (
+        "tracks_dropped", "packets_dropped", "finalize_deferred",
+        "packet_peak_overflow", "out_overflow"))
+    assert (dev_total > 0) == bool(pools), dev_total
+
+
+def test_device_tracker_process_counts_launches(dev):
+    """process launches the kernel on CUDA tensors (one count a call) and
+    raises on what the kernel does not take."""
+    from gr_lora_tpu_torch.ops import device_tracker as ops
+
+    cfg, lat = _tracker_lattice(dev, channels=2)
+    walk = ops.TrackerWalk(cfg, 8)
+    st = walk.init_state(2, dev)
+    before = ops.launches
+    walk.process(st, *lat)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    with pytest.raises(ValueError):
+        walk.process(st, lat[0].long(), *lat[1:])
+    with pytest.raises(ValueError):
+        ops.TrackerWalk(cfg, 8, track_pool=512).process(
+            ops.TrackerWalk(cfg, 8, track_pool=512).init_state(2, dev), *lat)
+
+
+def test_gateway_device_tracker_on_card_equals_cpu(dev):
+    """PyramidGateway(tracker="device") on the card (the lattice and the
+    walk kernels) and on the CPU (their plain versions): the same
+    packets, both golden PDUs on every channel."""
+    from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
+
+    cfg = _cfg(8).replace(payload_len=8)
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                         pad_back=0)
+    total = 1000 + 22 * n + 2 * (13 * n + 18 * n) + 8 * n + 2 * 777
+    iq = np.zeros((3, total), np.complex64)
+    for c in range(3):
+        off = 1000 + c * 777
+        iq[c, off:off + len(p1)] += p1
+        o2 = off + 16 * n + 4 * n // 8 + 204
+        iq[c, o2:o2 + len(p2)] += p2
+    runs = []
+    for device in (dev, "cpu"):
+        gw = PyramidGateway(cfg, 3, block_hops=512, max_peaks=8,
+                            backend="fused", tracker="device",
+                            device=device)
+        pkts = gw.feed(to_ri(iq)) + gw.flush()
+        runs.append(sorted((p.channel, p.position, p.symbols.tolist())
+                           for p in pkts))
+        assert gw.stats()["deviations"] == 0
+        pdus = {(p.channel, bytes(p.result.payload).hex()) for p in pkts
+                if p.result.ok and p.result.crc_ok}
+        assert {(c, x) for c in range(3) for x in (PDU1, PDU2)} <= pdus
+    assert runs[0] == runs[1]

@@ -105,12 +105,17 @@ def test_gateway_complex_input_stats_and_bytes(matrix):
                                 dict(tracker="device"),
                                 dict(use_native=False)])
 def test_gateway_options_not_ported(kw):
-    """mesh= and tracker="device" raise, citing their ROADMAP items;
-    use_native=False builds the Python tracker bank."""
+    """mesh= raises, citing its ROADMAP item; use_native=False builds the
+    Python tracker bank; tracker="device" (ported since) the device
+    tracker, its deviation counters at zero."""
     if "use_native" in kw:
         gw = PyramidGateway(CFG, 2, **CPU, **kw)
         assert gw.stats() == {"tracks_dropped": 0, "packets_dropped": 0,
                               "tracks_overflow_finalized": 0}
+        return
+    if "tracker" in kw:
+        gw = PyramidGateway(CFG, 2, **CPU, **kw)
+        assert gw.trackers is None and gw.stats()["deviations"] == 0
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         PyramidGateway(CFG, 2, **CPU, **kw)

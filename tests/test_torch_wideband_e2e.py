@@ -274,12 +274,42 @@ def _same_sets(got, ref):
         assert abs(pos[0] - theirs[key][0]) <= hop, (key, pos, theirs[key])
 
 
-def test_wideband_cli_matches_jax_cli(capture, port_cli):
-    """The port's CLI against the JAX package's CLI on the same capture:
-    equal (channel, sf, payload) sets, positions within one hop."""
+@pytest.fixture(scope="module")
+def jax_cli(capture):
+    """The JAX package's ``apps.gateway --collision`` datagrams."""
     from gr_lora_tpu.apps import gateway as jax_gateway
 
-    _same_sets(port_cli, _cli_datagrams(jax_gateway.main, capture))
+    return _cli_datagrams(jax_gateway.main, capture)
+
+
+def test_wideband_cli_matches_jax_cli(port_cli, jax_cli):
+    """The port's CLI against the JAX package's CLI on the same capture:
+    equal (channel, sf, payload) sets, positions within one hop."""
+    _same_sets(port_cli, jax_cli)
+
+
+def test_gateway_cli_device_tracker_matches_jax_cli(capture, jax_cli,
+                                                    monkeypatch):
+    """``--tracker device``: every packet once, each SF's windows tracked
+    by the device walk, and the JAX CLI's (channel, sf, payload) set (its
+    host tracker bank; tests/test_torch_device_gateways.py holds the
+    port's device mode to the JAX package's on the gated gateway)."""
+    from gr_lora_tpu_torch.apps import gateway
+    from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
+
+    walked = set()
+    process = TrackerWalk.process
+
+    def counted(self, *args):
+        walked.add(self.cfg.sf)
+        return process(self, *args)
+
+    monkeypatch.setattr(TrackerWalk, "process", counted)
+    got = _cli_datagrams(lambda argv, **kw: gateway.main(
+        argv + ["--tracker", "device"], **kw), capture, device="cpu")
+    _assert_every_packet_once(got)
+    assert {sf for _, sf, _, _ in got} <= walked, walked
+    _same_sets(got, jax_cli)
 
 
 def test_wideband_cli_matches_jax_cli_on_drawn_payloads(tmp_path):
