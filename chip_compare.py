@@ -17,7 +17,12 @@ chip_smoke.py's always-on block (16 channels x 2048 hops at SF8 x ff
 8), K5 on the block's chunk spectra (first, before the others
 allocate), K3, K4b and K6; then P1 at the main dot shape, and P2's three
 kinds (``mxu``, ``vpu``, ``both``, 64 steps x 2 rounds) at the same
-shape.  Prints each run's JSON line, then the parent's and the change's
+shape; then the tracker walk (``TrackerWalk.kernel``, 10 calls on the
+first block, the state carried on) on chip_smoke.py phase 11a's three
+inputs (the always-on SF8 block, the north-star SF10 and SF8 event
+batches) at the default pools and at chip_smoke.LARGE_POOLS, and, where
+the tree's kernel has instances, the global-memory one at the default
+pools.  Prints each run's JSON line, then the parent's and the change's
 times side by side with the card's name and power limit.  Needs a CUDA
 device; imports nothing of JAX.
 """
@@ -25,6 +30,7 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -40,6 +46,7 @@ def _smoke():
     spec = importlib.util.spec_from_file_location("smoke",
                                                   HERE / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod           # its dataclasses look it up
     spec.loader.exec_module(mod)
     return mod
 
@@ -67,6 +74,10 @@ def one(tree: str) -> dict:
                           text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
     ms = {}
+    cfg = smoke.base_config()
+    ao, _ = smoke.always_on_fixture(cfg)
+    n = cfg.num_samples
+    block = smoke.AO_BLOCK_HOPS * n // 8 + n - n // 8
     with torch.no_grad():
         gw = TriggeredPyramidGateway(smoke.base_config(), smoke.CHANNELS,
                                      sfs=smoke.SFS, max_payload_len=16,
@@ -108,14 +119,12 @@ def one(tree: str) -> dict:
                 lambda: launch_topm(*sp, mod.threshold, mod.max_peaks),
                 ITERS)
             del g, sp
+        x8 = torch.from_numpy(ao[:, :block]).to(dev)
+        walk_ms(smoke, ms, smoke._tracker_lattices(gw, iq_dev, singles,
+                                                   cfg, x8))
         del gw, iq, iq_dev
         torch.cuda.empty_cache()
 
-        cfg = smoke.base_config()
-        ao, _ = smoke.always_on_fixture(cfg)
-        n = cfg.num_samples
-        block = smoke.AO_BLOCK_HOPS * n // 8 + n - n // 8
-        x8 = torch.from_numpy(ao[:, :block]).to(dev)
         hops = smoke.AO_BLOCK_HOPS
         # K5 first: its time must not depend on what the others allocated.
         mod = OverlapSpectra(cfg, hops).to(dev)
@@ -142,6 +151,27 @@ def one(tree: str) -> dict:
     return {"tree": tree, "card": card, "ms": ms}
 
 
+def walk_ms(smoke, ms: dict, lattices) -> None:
+    """The tracker walk's times on [C, H, 8] lattices: the first half of
+    each, 10 kernel calls after a warm-up, the state carried on."""
+    from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
+
+    named = "instance" in inspect.signature(TrackerWalk.kernel).parameters
+    for name, cfg, lat in lattices:
+        c, hops, m = lat[0].shape
+        half = tuple(x[:, :hops // 2].contiguous() for x in lat)
+        tag = f"{name} [{c}, {hops // 2}, {m}]"
+        for label, pools, inst in (
+                ("walk", {}, ()), ("walk large pools", smoke.LARGE_POOLS, ()),
+                ("walk global instance", {}, ("global",))):
+            if inst and not named:
+                continue
+            walk = TrackerWalk(cfg, m, **pools)
+            st = walk.init_state(c, half[0].device)
+            ms[f"{label} {tag}"] = smoke._time_ms(
+                lambda: walk.kernel(st, *half, *inst), ITERS)
+
+
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
         print(json.dumps(one(sys.argv[2])))
@@ -164,7 +194,9 @@ def main() -> None:
         print(json.dumps(res))
         runs.append(res)
     print(f"card: {runs[0]['card']}")
-    for key in runs[0]["ms"]:
+    keys = list(runs[0]["ms"])
+    keys += [k for r in runs for k in r["ms"] if k not in keys]
+    for key in dict.fromkeys(keys):
         got = {lab: [f"{r['ms'][key]:.4f}" for r in runs
                      if r["label"] == lab and key in r["ms"]]
                for lab in ("parent", "change")}

@@ -30,7 +30,8 @@ the final ``ok`` line):
    another order than their plain versions — the same peaks up to f32
    ties, heights within rtol 1e-3, and the dense K3 / K4b / K6 spectra
    within 1e-4 of the largest value; K2 and K5 round as their plain
-   versions do: equal bit for bit;
+   versions do: equal bit for bit; the merge that ends K1 (SF8) and K2
+   (SF10), its device time read from torch.profiler;
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
    backend "fused": K1 and K2) fed the golden SF8 collision on every
@@ -107,18 +108,24 @@ the final ``ok`` line):
    walk kernel csrc/device_tracker.cu): (a) the kernel against its plain
    version on phase 5's always-on SF8 block (16 channels, 512 hops of
    K3's lattice) and one north-star event batch at SF10 (K2) and SF8
-   (K1), each with and without split_repeats and on pools small enough
+   (K1), each with and without split_repeats, on pools small enough
    that the deviation counters fire (with a synthetic twin lattice whose
-   two packets expire on one hop: every counter fires), as two
-   consecutive blocks and the flush: every state field equal bit for
-   bit, timed beside the plain version; (b) phase 4's north star with ``tracker="device"``: every
+   two packets expire on one hop: every counter fires) and on pools
+   past a block's shared memory (the kernel's global-memory instance),
+   as two consecutive blocks and the flush: every state field equal bit
+   for bit, timed beside the plain version, the byte bound and the
+   chain bound (from the latencies of the chain's primitives, measured
+   on the card by a small nvcc-built probe), each instance's registers,
+   stack and spills from ptxas;
+   (b) phase 4's north star with ``tracker="device"``: every
    golden PDU and single, no deviation, K1, K2 and the walk launched,
    the PDUs against phase 4's, the wall split beside phase 4's and one
    profiled feed each of the host and device trackers; (c) phase 5's
    always-on gateway at ``fastp`` and ``fused_direct`` and phase 6's
    multi-SF gateway with ``tracker="device"``: the host tracker's PDUs,
    no deviation, the bytes copied to the host against the host
-   tracker's; (d) dist/soak on the gated gateway with split_repeats,
+   tracker's; then ``fastp`` again with pools past a block's shared
+   memory (the walk's global-memory instance): the same PDUs; (d) dist/soak on the gated gateway with split_repeats,
    the host tracker and then ``tracker="device"`` on the same uncurated
    traffic: check_soak holds the device run to the host tracker's
    packets, the injected packets neither decodes printed; (e) apps.gateway --collision --tracker device on phase
@@ -126,7 +133,9 @@ the final ``ok`` line):
 
 Phases 4-8, 10 and 11 each assert what they check and that their kernels
 ran: every launch count is set to 0 just before a phase and read just
-after.  The line before the last is a JSON object with every kernel's
+after.  Two lines then give the port's kernels that stand for no TPU
+kernel, the dense ``peak_topm`` and the merge: their main-path shapes,
+ms, byte bound and launches over phases 4-11.  The line before the last is a JSON object with every kernel's
 route, source, the TPU kernel it replaces (the tracker walk: the
 ``lax.scan`` it stands for), launches, max |delta| against its plain
 version, times, and the least time the card could take (``bound_ms``:
@@ -361,14 +370,50 @@ def _event_windows(iq_dev, gw, singles, sf, lanes, length):
                         for c, s in zip(chs, starts)]).contiguous()
 
 
-def parity(gw, iq_dev, singles, report: dict) -> None:
+def _merge_ms(call, iters: int = 10) -> float:
+    """Device ms a call of the merge kernel (csrc/peak_topm.cu
+    peak_merge_kernel) that ends a fused peak lattice's ``call``, from
+    torch.profiler's trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA and "peak_merge" in e.name()]
+    if len(ns) != iters:
+        fail(f"the profiler saw {len(ns)} merge kernels in {iters} calls")
+    return sum(ns) / 1e6 / iters
+
+
+def _merge_row(name: str, call, rows: int, lists: int, pairs: int,
+               m: int, shape: str, port_only: dict) -> None:
+    """The merge's time and byte bound after one fused lattice: it reads
+    ``lists`` candidates and ``pairs`` edge pairs (16 B each: faw, bin,
+    fa, hs) and writes rows x M peaks."""
+    ms = _merge_ms(call)
+    bound = _bound(16 * (lists + pairs) + 13 * rows * m)
+    print(f"parity merge after {name} {shape}: ms={ms:.4f} "
+          f"bound_ms={bound[0]:.6f} (candidates {lists}, edge pairs "
+          f"{pairs})")
+    port_only.setdefault("merge", []).append(
+        {"after": name, "shape": shape, "ms": ms, "bound_ms": bound[0]})
+
+
+def parity(gw, iq_dev, singles, report: dict, port_only: dict) -> None:
     """Phase 3: every kernel against its plain version at main-path
-    shapes, on the card."""
+    shapes, on the card; the merge's device time after K1 (SF8) and K2
+    (SF10)."""
     import torch
 
     from gr_lora_tpu_torch.models.pyramid import BlockedLattice
-    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
-    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks, _bands
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks, num_units
 
     lanes = gw.event_batch
     for sf in (7, 8, 9):
@@ -398,6 +443,12 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
               f"tie_peaks={moved} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound[0]:.4f} alloc_bytes={alloc}")
         report["rdft_peaks"].append(_row(err, ms, plain_ms, shape, bound))
+        if sf == 8:
+            rows, units = lanes * mod.num_frames, num_units(fr.k)
+            _merge_row("K1", lambda: mod(x), rows,
+                       rows * units * mod.max_peaks,
+                       rows * 4 * (units - 1), mod.max_peaks,
+                       f"SF8 [{rows}, {units} lists]", port_only)
     for sf in (10, 12):
         st = gw.sf_states[sf]
         lat = gw.lattice(sf)
@@ -432,6 +483,14 @@ def parity(gw, iq_dev, singles, report: dict) -> None:
                                             bound))
         report["overlap_peaks"][-1]["unfused_floor_ms"] = \
             _unfused_floor_ms(ops)
+        if sf == 10:
+            fr = mod.front
+            rows, bands = lanes * mod.num_hops, _bands(fr.f, fr.k)
+            _merge_row("K2", lambda: mod.from_chunks(g), rows,
+                       rows * bands * mod.max_peaks,
+                       rows * 2 * (bands if fr.f == 2 * fr.k else 1),
+                       mod.max_peaks, f"SF10 [{rows}, {bands} lists]",
+                       port_only)
 
 
 def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
@@ -537,7 +596,8 @@ def _dense_check(name, kern, plain, rtol):
     return err
 
 
-def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
+def parity_dense(cfg8, x8, cfg12, x12, report: dict,
+                 port_only: dict) -> None:
     """Phase 3, dense kernels: K3, K4b, K6, K4 and K5 against their plain
     versions on one always-on block [16, 2048 hops] at SF8 (K5 also on
     the multi-SF gateway's SF12 block of 128 hops).  Each comparison
@@ -577,7 +637,7 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         _, moved = _compare(peaks_plain(*kern, thr, 8),
                             peaks_plain(*plain, thr, 8), plain[1], 1e-3, thr)
         if tag == "K3":
-            _time_topm(kern, thr)
+            _time_topm(kern, thr, port_only)
         del kern, plain
         ms = _time_ms(lambda: mod.kernel(x8), 5)
         plain_ms = _time_ms(lambda: mod.plain(x8), 3)
@@ -654,18 +714,22 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _time_topm(spectra, threshold: float) -> None:
+def _time_topm(spectra, threshold: float, port_only: dict) -> None:
     """peak_topm's two instances on one block of dense spectra: M = 8 (the
     main path's register list) and M = 32 (the refilling instance)."""
     from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm
 
     fa, faw, hs = spectra
     k = faw.shape[-1]
+    rows = faw.numel() // k
     ms = {m: _time_ms(lambda m=m: launch_topm(fa, faw, hs, threshold, m), 5)
           for m in (8, 32)}
-    bound = _bound(_nbytes(fa, faw, hs))
-    print(f"parity peak_topm [{faw.numel() // k} rows, {k}] (K3's spectra): "
+    bound = _bound(_nbytes(fa, faw, hs) + 13 * rows * 8)
+    print(f"parity peak_topm [{rows} rows, {k}] (K3's spectra): "
           f"M8_ms={ms[8]:.4f} M32_ms={ms[32]:.4f} bound_ms={bound[0]:.4f}")
+    port_only["peak_topm"] = [{"shape": f"[{rows}, {k}] M 8", "ms": ms[8],
+                               "bound_ms": bound[0],
+                               "ms_m32": ms[32]}]
 
 
 def _product_operands(mod, x):
@@ -832,14 +896,16 @@ def _ao_pdus(pkts, channels: int, what: str) -> dict:
 
 
 def always_on(cfg, iq, dev, card: str, launches: dict,
-              tracker: str = "host", host: dict | None = None) -> dict:
+              tracker: str = "host", host: dict | None = None,
+              device_pools: dict | None = None) -> dict:
     """Phase 5: the always-on gateway once per kernel backend: two passes
     of the fixture in AO_CHUNK chunks (numpy, as bench.py feeds it), then
     a flush; both golden PDUs must decode on every channel for each of
     the fixture's two collisions in each pass.  Returns {backend:
     (fetched bytes, {channel: PDUs})}.  Phase 11c runs it again with
     ``tracker="device"`` over the backends of ``host`` (phase 5's
-    result): the same PDUs on every channel, no deviation."""
+    result): the same PDUs on every channel, no deviation; with
+    ``device_pools`` the device tracker's pools."""
     import torch
 
     from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
@@ -851,7 +917,7 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
             continue
         gw = PyramidGateway(cfg, channels, block_hops=AO_BLOCK_HOPS,
                             max_peaks=8, backend=backend, tracker=tracker,
-                            device=dev)
+                            device_pools=device_pools, device=dev)
         mods = _kernel_modules(gw.lattice, name)
         for m in mods:
             m.launches = 0
@@ -870,7 +936,8 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
         launches[name] = launches.get(name, 0) + count
         if count <= 0:
             fail(f"always-on {backend}: kernel {name} was not launched")
-        what = f"always-on {backend} tracker={tracker}"
+        what = f"always-on {backend} tracker={tracker}" + (
+            f" pools={device_pools}" if device_pools else "")
         pdus = _ao_pdus(pkts, channels, what)
         out[backend] = (gw.fetched_bytes, pdus)
         extra = ""
@@ -886,8 +953,8 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
                      f"{host[backend][0]}, {cut:.1f}x)")
         w = walls[1]
         sps = channels * t / secs[1]
-        print(f"{'tracker 11c' if host is not None else 'main'} always-on "
-              f"backend={backend} tracker={tracker} {channels}ch SF{cfg.sf} "
+        print(f"{'tracker 11c' if host is not None else 'main'} {what} "
+              f"{channels}ch SF{cfg.sf} "
               f"block_hops={AO_BLOCK_HOPS} T={t} x2 passes + flush on "
               f"{card}: packets={len(pkts)} pass_s=[{secs[0]:.4f}, "
               f"{secs[1]:.4f}] pass2_wall[dispatch={w['dispatch']:.4f} "
@@ -2342,6 +2409,59 @@ TRACKER_SOAK_CHUNKS = 384
 TINY_POOLS = dict(track_pool=4, packet_pool=1, expire_per_hop=1,
                   max_symbols=8, out_pool=1, finalize_per_hop=1)
 TINY_OUTPUTS = dict(out_pool=1, expire_per_hop=1)
+#: Pools past a block's shared memory (the walk's global-memory instance):
+#: in 11a with split_repeats (291 840 B of rings, t_mid_h and packet
+#: entries), on 11c's main path without (packet pool 256: 376 832 B).
+LARGE_POOLS = dict(track_pool=256, split_repeats=True)
+GLOBAL_POOLS = dict(track_pool=256, packet_pool=256)
+#: The walk's chain bound (csrc/device_tracker.cu's head): the critical
+#: path of one valid peak (6 dependent integer steps and one warp vote)
+#: and of one hop's tail (2 steps and a vote), at the latencies
+#: _chain_latencies measures on the card.
+CHAIN_PEAK = (6, 1)
+CHAIN_TAIL = (2, 1)
+#: One warp's dependent chains of each primitive, 16 a loop iteration:
+#: the integer step, the vote, redux.sync, the shuffle, the shared load.
+LATENCY_CU = r"""
+extern "C" __global__ void chains(int iters, int m, int* out,
+                                  long long* cyc) {
+    __shared__ int s[256];
+    const int lane = threadIdx.x;
+    for (int i = lane; i < 256; i += 32) s[i] = (i * 7 + 1) & 255;
+    __syncwarp();
+    int v = lane + m;
+    long long t[6];
+    t[0] = clock64();
+    for (int i = 0; i < iters; ++i)
+#pragma unroll
+        for (int u = 0; u < 16; ++u) v = v * 3 + lane;
+    t[1] = clock64();
+    for (int i = 0; i < iters; ++i)
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+            v = (int)__ballot_sync(~0u, v & 1) + lane;
+    t[2] = clock64();
+    for (int i = 0; i < iters; ++i)
+#pragma unroll
+        for (int u = 0; u < 16; ++u) v = __reduce_min_sync(~0u, v) + lane;
+    t[3] = clock64();
+    for (int i = 0; i < iters; ++i)
+#pragma unroll
+        for (int u = 0; u < 16; ++u) v = __shfl_sync(~0u, v, (v + lane) & 31);
+    t[4] = clock64();
+    for (int i = 0; i < iters; ++i)
+#pragma unroll
+        for (int u = 0; u < 16; ++u) v = s[v & 255];
+    t[5] = clock64();
+    out[lane] = v;
+    if (lane == 0)
+        for (int i = 0; i < 5; ++i) cyc[i] = t[i + 1] - t[i];
+}
+extern "C" int run_chains(int iters, void* out, void* cyc) {
+    chains<<<1, 32>>>(iters, 77, (int*)out, (long long*)cyc);
+    return (int)cudaDeviceSynchronize();
+}
+"""
 
 
 def _state_bytes(state: dict) -> int:
@@ -2408,19 +2528,106 @@ def _twin_lattice(cfg, channels: int, dev):
                  for x in (bins, h, 0.8 * h, valid))
 
 
+def _max_sm_clock() -> int:
+    """The card's top SM clock in MHz (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        return int(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {out.stdout!r} {out.stderr!r}")
+
+
+def _chain_latencies() -> dict:
+    """Cycles of one dependent step of each primitive on the card:
+    LATENCY_CU built with nvcc, 1024 x 16 steps a chain; each chain but
+    the integer one less the integer step it carries."""
+    import ctypes
+
+    import torch
+
+    from gr_lora_tpu_torch.ops import _build
+
+    iters = 1024
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = f"{tmp}/chains.cu", f"{tmp}/chains.so"
+        with open(src, "w") as f:
+            f.write(LATENCY_CU)
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3",
+                        "-Xcompiler", "-fPIC", "-shared", "-o", lib, src],
+                       check=True, capture_output=True, timeout=300)
+        run = ctypes.CDLL(lib).run_chains
+    run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.zeros(32, dtype=torch.int32, device="cuda")
+    cyc = torch.zeros(5, dtype=torch.int64, device="cuda")
+    if run(iters, out.data_ptr(), cyc.data_ptr()):
+        fail("the latency chains did not run")
+    per = [c / (16 * iters) for c in cyc.tolist()]
+    step = per[0]
+    return {"int": step, "vote": per[1] - step, "redux": per[2] - step,
+            "shfl": per[3] - step, "lds": per[4] - step}
+
+
+def _chain_cycles(lat: dict) -> tuple[float, float]:
+    """(cycles of one peak, of one hop's tail) on the chain bound's
+    critical paths at latencies ``lat``."""
+    return tuple(n * lat["int"] + v * lat["vote"]
+                 for n, v in (CHAIN_PEAK, CHAIN_TAIL))
+
+
+def _chain_bound_ms(valid, mhz: int, lat: dict) -> tuple[float, int, int]:
+    """The walk's chain bound on a [C, H, M] block (csrc/device_tracker.cu's
+    head): the busiest channel's valid peaks x one peak's cycles + the
+    hops x one tail's cycles at ``mhz``.  Returns (ms, peaks, hops)."""
+    peak, tail = _chain_cycles(lat)
+    peaks = int(valid.sum(dim=(1, 2)).max())
+    hops = valid.shape[1]
+    return (peaks * peak + hops * tail) / (mhz * 1e3), peaks, hops
+
+
+def _tracker_resources() -> list:
+    """(instance, ptxas's registers, stack and spills) of each compiled
+    instance of the walk kernel, from the build's report."""
+    from gr_lora_tpu_torch.ops import _build
+
+    out = []
+    for mangled, usage in _build.resources().items():
+        m = re.search(r"tracker_kernelILi(\d+)ELb([01])E", mangled)
+        if m:
+            inst = "shared" if m.group(2) == "1" else "global"
+            out.append((f"{inst} N={m.group(1)}", usage))
+    if len(out) < 2:
+        fail(f"tracker 11a: ptxas reported {len(out)} walk instances")
+    return sorted(out)
+
+
 def tracker_parity(lattices, report: dict) -> None:
     """Phase 11a: the tracker walk kernel against its plain version on the
-    card, on each lattice with and without split_repeats and on tiny
-    pools: two consecutive blocks (the lattice's halves, the state
-    carried across) and the flush, every state field equal bit for bit
-    after each.  Times one kernel call on the first block (CUDA events,
-    the state carried on) beside the plain version's."""
+    card, on each lattice with and without split_repeats, on tiny pools
+    and on pools past a block's shared memory (LARGE_POOLS): two
+    consecutive blocks (the lattice's halves, the state carried across)
+    and the flush, every state field equal bit for bit after each, in the
+    instance the wrapper picks (shared memory, or global memory for
+    LARGE_POOLS).  Times one kernel call on the first block (CUDA events,
+    the state carried on) beside the plain version's, the byte bound and
+    the chain bound; at the default pools the global instance too."""
     import torch
 
     from gr_lora_tpu_torch.models.device_tracker import (_DEVIATION_COUNTERS,
                                                          flush_hops)
     from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
 
+    mhz = _max_sm_clock()
+    steps = _chain_latencies()
+    peak_c, tail_c = _chain_cycles(steps)
+    print("tracker 11a latencies (cycles a dependent step, measured): "
+          + " ".join(f"{k}={v:.2f}" for k, v in steps.items())
+          + f"; chain: a peak {peak_c:.1f}, a hop's tail {tail_c:.1f} at "
+          f"{mhz} MHz (clocks.max.sm)")
+    for inst, usage in _tracker_resources():
+        print(f"tracker 11a ptxas {inst}: {usage}")
     fired = set()
     twin = ("twin", lattices[0][1],
             _twin_lattice(lattices[0][1], 16, lattices[0][2][0].device))
@@ -2433,9 +2640,13 @@ def tracker_parity(lattices, report: dict) -> None:
         flush = (z, z.float(), z.float(), z.bool())
         runs = (("", {}), (" split_repeats", {"split_repeats": True}),
                 (" tiny pools", TINY_POOLS),
+                (" large pools", LARGE_POOLS),
                 (" tiny outputs", TINY_OUTPUTS))
-        for label, pools in (runs[3:] if name == "twin" else runs):
+        for label, pools in (runs[4:] if name == "twin" else runs):
             walk = TrackerWalk(cfg, m, **pools)
+            inst = walk.instance(m)
+            if inst != ("global" if pools is LARGE_POOLS else "shared"):
+                fail(f"tracker 11a {name}{label}: instance {inst}")
             kern, plain = walk.init_state(c, z.device), \
                 walk.init_state(c, z.device)
             plain_ms = None
@@ -2456,21 +2667,34 @@ def tracker_parity(lattices, report: dict) -> None:
             if not pools.get("expire_per_hop") and (devs or not packets):
                 fail(f"tracker 11a {name}{label}: packets={packets} "
                      f"deviations={devs}")
-            line = (f"tracker 11a {name}{label} [{c}, {hops}, {m}] x2 "
-                    f"blocks + flush: state equal bit for bit, packets="
-                    f"{packets} deviations={devs or 0}")
-            if label:
+            line = (f"tracker 11a {name}{label} [{c}, {hops}, {m}] "
+                    f"instance={inst} ({walk.shared_bytes(m, inst)} B "
+                    f"shared) x2 blocks + flush: state equal bit for bit, "
+                    f"packets={packets} deviations={devs or 0}")
+            if label not in ("", " large pools"):
                 print(line)
                 continue
             st = walk.init_state(c, z.device)
             ms = _time_ms(lambda: walk.kernel(st, *half[0]), 5)
+            extra = ""
+            if not label:
+                st = walk.init_state(c, z.device)
+                gms = _time_ms(lambda: walk.kernel(st, *half[0], "global"),
+                               5)
+                extra = f" global_instance_ms={gms:.4f}"
             nbytes = _nbytes(*half[0]) + 2 * _state_bytes(st)
             bound = _bound(nbytes)
-            print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            chain, peaks, nh = _chain_bound_ms(half[0][3], mhz, steps)
+            print(f"{line} ms={ms:.4f}{extra} plain_ms={plain_ms:.4f} "
                   f"bound_ms={bound[0]:.6f} (lattice + 2 x state "
-                  f"{nbytes} B)")
-            report["device_tracker"].append(_row(
-                0.0, ms, plain_ms, f"{name} [{c}, {hops // 2}, {m}]", bound))
+                  f"{nbytes} B) chain_bound_ms={chain:.6f} (busiest "
+                  f"channel {peaks} valid peaks x {peak_c:.1f} + {nh} hops "
+                  f"x {tail_c:.1f} cycles at {mhz} MHz; {ms / chain:.1f}x)")
+            row = _row(0.0, ms, plain_ms, f"{name} [{c}, {hops // 2}, {m}]",
+                       bound)
+            row["chain_bound_ms"] = chain
+            report["device_tracker_global" if label
+                   else "device_tracker"].append(row)
     if fired != set(_DEVIATION_COUNTERS):
         fail(f"tracker 11a: the tiny pools fired {sorted(fired)}, not "
              f"every deviation counter")
@@ -2680,6 +2904,14 @@ def tracker_phase(iq, singles, ns, ao, msf, wide, dev, card: str,
              tracker="device", host=msf_host)
     counts = {"11b": launches["device_tracker"],
               "11c": walk_ops.launches - before}
+    # The global-memory instance on the main path: fastp with pools past a
+    # block's shared memory, the host tracker's PDUs all the same.
+    before = walk_ops.global_launches
+    always_on(ao_cfg, ao_iq, dev, card, launches, tracker="device",
+              host={"fastp": ao_host["fastp"]}, device_pools=GLOBAL_POOLS)
+    launches["device_tracker_global"] = walk_ops.global_launches - before
+    if launches["device_tracker_global"] <= 0:
+        fail("tracker 11c: the global instance was not launched")
     marks.append(time.perf_counter())
     counts["11d"] = tracker_soak(dev, card)
     marks.append(time.perf_counter())
@@ -2693,7 +2925,8 @@ def tracker_phase(iq, singles, ns, ao, msf, wide, dev, card: str,
     print(f"tracker phase 11 total_s={marks[-1] - marks[0]:.2f} (11a "
           f"{parts[0]:.1f}, 11b {parts[1]:.1f}, 11c {parts[2]:.1f}, 11d "
           f"{parts[3]:.1f}, 11e {parts[4]:.1f}) tracker launches="
-          f"{launches['device_tracker']} {counts}")
+          f"{launches['device_tracker']} {counts}, global instance "
+          f"{launches['device_tracker_global']} (11c)")
 
 
 #: Where each peak kernel's top-M runs.
@@ -2733,6 +2966,10 @@ META = {
     # A lax.scan, not a Pallas kernel (models/device_tracker.py:85).
     "device_tracker": ("cuda", "gr_lora_tpu_torch/csrc/device_tracker.cu",
                        "gr_lora_tpu/models/device_tracker.py:85"),
+    # Its instance for pools past a block's shared memory.
+    "device_tracker_global": ("cuda",
+                              "gr_lora_tpu_torch/csrc/device_tracker.cu",
+                              "gr_lora_tpu/models/device_tracker.py:85"),
 }
 
 
@@ -2793,13 +3030,18 @@ def main() -> None:
 
     # Phase 3: kernel parity on the card.
     report = {name: [] for name in META}
+    port_only = {}
     with torch.no_grad():
-        parity(gw, iq_dev, singles, report)
+        parity(gw, iq_dev, singles, report, port_only)
         parity_dense(ao_cfg, torch.from_numpy(ao_iq[:, :block]).to(dev),
-                     cfg12, x12, report)
+                     cfg12, x12, report, port_only)
         parity_extra(ao_cfg, dev)
     del x12
     torch.cuda.empty_cache()
+
+    # Phases 4-11 count the dense peak_topm's launches.
+    from gr_lora_tpu_torch.ops import peak_epilogue
+    peak_epilogue.topm_launches = 0
 
     # Phase 4: the north-star main path (K1, K2).
     launches, ns_pdus, ns_packets, ns_wall = main_path(gw, iq_dev, singles,
@@ -2839,6 +3081,18 @@ def main() -> None:
                       report, launches)
         torch.cuda.empty_cache()
 
+    # The port's kernels that stand for no TPU kernel: the dense top-M
+    # (launched by the dense backends' epilogue, counted as their front's
+    # launch above) and the merge that ends every K1 and K2 launch.
+    topm, merge = port_only["peak_topm"][0], port_only["merge"]
+    print(f"port-only peak_topm dense {topm['shape']}: ms={topm['ms']:.4f} "
+          f"(M 32 {topm['ms_m32']:.4f}) bound_ms={topm['bound_ms']:.6f} "
+          f"launches={peak_epilogue.topm_launches} (phases 4-11)")
+    print("port-only merge (csrc/peak_topm.cu peak_merge_kernel): "
+          + "; ".join(f"after {r['after']} {r['shape']} ms={r['ms']:.4f} "
+                      f"bound_ms={r['bound_ms']:.6f}" for r in merge)
+          + f"; launches={launches['rdft_peaks'] + launches['overlap_peaks']}"
+          " (one a K1 or K2 launch, phases 4-11)")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "gr_lora_tpu"))
     if foreign:

@@ -57,6 +57,7 @@ SIGNATURES = {
     "grl_rate_probe": [_P] * 4 + [_I] * 4 + [_P],
     "grl_overlap_probe": [_P] * 6 + [_I] * 7 + [_P],
     "grl_device_tracker": [_P, _P, _F] + [_P] * 5,
+    "grl_device_tracker_global": [_P, _P, _F] + [_P] * 5,
 }
 
 _lock = threading.Lock()

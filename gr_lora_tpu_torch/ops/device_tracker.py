@@ -12,9 +12,12 @@ would launch some thirty operations a peak a hop; the kernel
 launch, one warp a channel.  It is bound by neither bytes nor operations
 but by its serial chain of dependent steps (a hop's peaks, a peak's
 track search, a packet's match), so its time is latency; the design keeps
-each step's search over the pools a warp reduction (a lane owns
-ceil(K / 32) track slots and ceil(Q / 32) packet slots) and every
-uniform step (classification, split extraction) in registers.
+a lane's track and packet slots in its registers for the whole launch,
+each search a warp vote, the lattice's staging and sort on a second
+warp, and the pools' bulky arrays (the rings, the packets' entries) in
+shared memory where they fit a block (:meth:`TrackerWalk.instance` picks
+the kernel's instance by that footprint; larger pools keep them in
+global memory).
 
 :class:`TrackerWalk` holds one configuration.  ``process(state, bins, h,
 hs, valid)`` consumes a ``[C, H, M]`` lattice block and updates the
@@ -51,8 +54,10 @@ _IMAX = int(np.iinfo(np.int32).max)
 _KIND_PRE, _KIND_DATA, _KIND_BROKEN = 0, 1, 2
 
 #: Kernel launches of :meth:`TrackerWalk.process` (one per call on CUDA
-#: tensors).
+#: tensors), by instance: the shared-memory one (``launches``) and the
+#: global-memory one (``global_launches``).
 launches = 0
+global_launches = 0
 
 #: The state's fields in the kernel's pointer order (csrc/device_tracker.cu
 #: ``State``), with their dtypes; shapes in :meth:`TrackerWalk.init_state`.
@@ -84,6 +89,17 @@ MAX_POOL = 256
 MAX_FINALIZE = 32
 MAX_GROUPS = 16
 MAX_PEAKS = 64
+#: Shared memory one block may have on the H100 (bytes), and the lattice
+#: hops the kernel stages at once.
+MAX_SHARED = 232448
+CHUNK_HOPS = 32
+#: The kernel's C entry point of each instance.
+ENTRY = {"shared": "grl_device_tracker", "global": "grl_device_tracker_global"}
+
+
+def _words(n: int) -> int:
+    """Bytes of n 4-byte words, rounded up to 16 (one array's room)."""
+    return (4 * n + 15) // 16 * 16
 
 
 class TrackerWalk:
@@ -145,13 +161,42 @@ class TrackerWalk:
         return st
 
     # -- the wrapper ----------------------------------------------------------
+    def shared_bytes(self, m: int | None = None,
+                     instance: str = "shared") -> int:
+        """Dynamic shared memory of one channel's block for a lattice of
+        ``m`` peaks a hop (``max_peaks`` by default): csrc/
+        device_tracker.cu ``layout``'s sum.  The shared instance holds
+        the rings ([K, R] x 4), ``t_mid_h`` and the packets' entries
+        ([Q, S] x 3); both hold the lattice chunk as loaded and two sorted
+        chunks (rows of m | 1: bins as given and reduced, heights; each
+        with its hops' counts), the assembly's scratch and a sink word."""
+        cm = CHUNK_HOPS * ((self.M if m is None else m) | 1)
+        work = (11 * _words(cm) + (cm + 15) // 16 * 16
+                + 2 * _words(CHUNK_HOPS) + 4 * _words(self.S)
+                + _words(self.S + 1) + _words(4))
+        if instance == "global":
+            return work
+        kr, qs = self.K * self.R, self.Q * self.S
+        return (work + 4 * _words(kr) + _words(self.K * (_MID_HI - _MID_LO))
+                + 3 * _words(qs))
+
+    def instance(self, m: int | None = None) -> str:
+        """The kernel's instance for these pools: ``"shared"`` where the
+        bulky arrays fit a block's shared memory beside the chunk and the
+        scratch, else ``"global"``."""
+        return "shared" if self.shared_bytes(m) <= MAX_SHARED else "global"
+
     def process(self, state: dict, bins, h, hs, valid) -> dict:
         """Consume a ``[C, H, M]`` lattice block (ascending-bin order is
         established here); the state's tensors are updated in place."""
         if bins.is_cuda:
-            self.kernel(state, bins, h, hs, valid)
-            global launches
-            launches += 1
+            inst = self.instance(bins.shape[-1])
+            self.kernel(state, bins, h, hs, valid, inst)
+            global launches, global_launches
+            if inst == "shared":
+                launches += 1
+            else:
+                global_launches += 1
             return state
         return self.plain(state, bins, h, hs, valid)
 
@@ -185,9 +230,17 @@ class TrackerWalk:
                                  f"{bins.device}")
         return c, hops
 
-    def kernel(self, state: dict, bins, h, hs, valid) -> None:
-        """Launch ``csrc/device_tracker.cu`` (no count)."""
+    def kernel(self, state: dict, bins, h, hs, valid,
+               instance: str | None = None) -> None:
+        """Launch ``csrc/device_tracker.cu`` (no count): the instance
+        :meth:`instance` picks, or the one named, for tests and for timing
+        one instance against the other (the shared one raises where the
+        pools do not fit)."""
         c, hops = self.check(state, bins, h, hs, valid)
+        instance = instance or self.instance(bins.shape[-1])
+        if instance not in ENTRY:
+            raise ValueError(f"instance must be one of {sorted(ENTRY)}: "
+                             f"{instance!r}")
         if c == 0 or hops == 0:
             return
         ptrs = (ctypes.c_void_p * len(STATE_FIELDS))(
@@ -199,10 +252,10 @@ class TrackerWalk:
             int(self.split), PYRAMID_MAX_TRACK_PEAKS, TIMESTAMP_MOD)
         lib = _build.library()
         with torch.cuda.device(bins.device):
-            err = lib.grl_device_tracker(
+            err = getattr(lib, ENTRY[instance])(
                 ptrs, params, self.thr, bins.data_ptr(), h.data_ptr(),
                 hs.data_ptr(), valid.data_ptr(), _build.stream_of(bins))
-        _build.check("grl_device_tracker", err)
+        _build.check(ENTRY[instance], err)
 
     # -- the plain version ----------------------------------------------------
     def plain(self, state: dict, bins, h, hs, valid) -> dict:

@@ -31,6 +31,9 @@ from . import _build
 #: runs the lattice's dense front end and ``peak_topm``.
 FUSED_MAX_PEAKS = 16
 
+#: Launches of the dense ``peak_topm`` kernel (:func:`launch_topm`).
+topm_launches = 0
+
 
 def peaks_plain(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
                 threshold: float, max_peaks: int):
@@ -77,6 +80,8 @@ def launch_topm(fa: torch.Tensor, faw: torch.Tensor, hs: torch.Tensor,
             h.data_ptr(), h_single.data_ptr(), valid.data_ptr(), rows, k,
             max_peaks, float(threshold), _build.stream_of(faw))
     _build.check("grl_peak_topm", err)
+    global topm_launches
+    topm_launches += 1
     return bins, h, h_single, valid
 
 

@@ -920,6 +920,32 @@ def test_device_tracker_kernel_equals_plain(dev, split, pools):
     assert (dev_total > 0) == bool(pools), dev_total
 
 
+@pytest.mark.parametrize("pools", [{}, dict(track_pool=256,
+                                            split_repeats=True)],
+                         ids=["named", "large"])
+def test_device_tracker_global_instance_equals_plain(dev, pools):
+    """The walk's global-memory instance (named on the default pools, or
+    picked by the footprint rule on pools past a block's shared memory)
+    over two blocks and a flush: every state field bit for bit."""
+    from gr_lora_tpu_torch.models.device_tracker import flush_hops
+    from gr_lora_tpu_torch.ops.device_tracker import TrackerWalk
+
+    cfg, lat = _tracker_lattice(dev)
+    walk = TrackerWalk(cfg, 8, **pools)
+    assert walk.instance() == ("global" if pools else "shared")
+    c, nh = lat[0].shape[:2]
+    kern, plain = walk.init_state(c, dev), walk.init_state(c, dev)
+    z = torch.zeros((c, flush_hops(), 8), dtype=torch.int32, device=dev)
+    flush = (z, z.float(), z.float(), z.bool())
+    for blk in ([x[:, :nh // 2].contiguous() for x in lat],
+                [x[:, nh // 2:].contiguous() for x in lat], flush):
+        walk.kernel(kern, *blk, "global")
+        walk.plain(plain, *blk)
+        torch.cuda.synchronize()
+        _same_state(kern, plain)
+    assert int(kern["o_count"][:3].min()) >= 1
+
+
 def test_device_tracker_process_counts_launches(dev):
     """process launches the kernel on CUDA tensors (one count a call) and
     raises on what the kernel does not take."""
@@ -937,6 +963,14 @@ def test_device_tracker_process_counts_launches(dev):
     with pytest.raises(ValueError):
         ops.TrackerWalk(cfg, 8, track_pool=512).process(
             ops.TrackerWalk(cfg, 8, track_pool=512).init_state(2, dev), *lat)
+    # Pools past a block's shared memory: the global instance, its count.
+    big = ops.TrackerWalk(cfg, 8, track_pool=256, split_repeats=True)
+    before = (ops.launches, ops.global_launches)
+    big.process(big.init_state(2, dev), *lat)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.global_launches) == (before[0], before[1] + 1)
+    with pytest.raises(RuntimeError):
+        big.kernel(big.init_state(2, dev), *lat, "shared")
 
 
 def test_gateway_device_tracker_on_card_equals_cpu(dev):
