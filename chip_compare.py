@@ -12,13 +12,16 @@ One run times, with CUDA events after one warm-up launch (10 launches
 each): K1 (rDFT peaks) at SF7, SF8 and SF9 and K2 (overlap peaks, from
 its chunk spectra) at SF10 and SF12 on chip_smoke.py's north-star event
 windows (8 lanes), each whole and as the unfused pair (its dense front
-end, K3's or K5's kernel, and peak_topm on what that wrote); then, on
-chip_smoke.py's always-on block (16 channels x 2048 hops at SF8 x ff
-8), K5 on the block's chunk spectra (first, before the others
-allocate), K3, K4b and K6; then P1 at the main dot shape, and P2's three
-kinds (``mxu``, ``vpu``, ``both``, 64 steps x 2 rounds) at the same
-shape; then the tracker walk (``TrackerWalk.kernel``, 10 calls on the
-first block, the state carried on) on chip_smoke.py phase 11a's three
+end, K3's or K5's kernel, and peak_topm on what that wrote), and the
+merge that ends K1 at SF8 and K2 at SF10 (device time from
+torch.profiler, chip_smoke._merge_ms); then, on chip_smoke.py's
+always-on block (16 channels x 2048 hops at SF8 x ff 8), K5 on the
+block's chunk spectra (first, before the others allocate), K3 (and
+peak_topm at M 8 and M 32 on K3's folds), K4b and K6; then P1 at the
+main dot shape, and P2's three kinds (``mxu``, ``vpu``, ``both``, 64
+steps x 2 rounds) at the same shape; then the tracker walk
+(``TrackerWalk.kernel``, 10 calls on the first block, the state carried
+on) on chip_smoke.py phase 11a's three
 inputs (the always-on SF8 block, the north-star SF10 and SF8 event
 batches) at the default pools and at chip_smoke.LARGE_POOLS, and, where
 the tree's kernel has instances, the global-memory one at the default
@@ -101,6 +104,8 @@ def one(tree: str) -> dict:
                 lambda: launch_topm(*sp, mod.threshold, mod.max_peaks),
                 ITERS)
             del sp
+            if sf == 8:
+                ms[f"merge after K1 {tag}"] = smoke._merge_ms(lambda: mod(x))
         for sf in (10, 12):
             lat = gw.lattice(sf)
             mod = lat.inner
@@ -118,6 +123,9 @@ def one(tree: str) -> dict:
             ms[f"K2 top-M {tag}"] = smoke._time_ms(
                 lambda: launch_topm(*sp, mod.threshold, mod.max_peaks),
                 ITERS)
+            if sf == 10:
+                ms[f"merge after K2 {tag}"] = smoke._merge_ms(
+                    lambda: mod.from_chunks(g))
             del g, sp
         x8 = torch.from_numpy(ao[:, :block]).to(dev)
         walk_ms(smoke, ms, smoke._tracker_lattices(gw, iq_dev, singles,
@@ -138,6 +146,16 @@ def one(tree: str) -> dict:
             mod = cls(cfg, hops).to(dev)
             ms[f"{tag} SF8 [16, {hops}]"] = smoke._time_ms(
                 lambda: mod.kernel(x8), ITERS)
+            if tag == "K3":
+                # The dense top-M on K3's folds: M 8 (the always-on
+                # backends') and M 32.
+                sp = mod.kernel(x8)
+                rows = sp[1].numel() // sp[1].shape[-1]
+                for m in (8, 32):
+                    ms[f"peak_topm [{rows}, {sp[1].shape[-1]}] M {m}"] = \
+                        smoke._time_ms(lambda: launch_topm(
+                            *sp, float(cfg.threshold), m), 2 * ITERS)
+                del sp
             del mod
             torch.cuda.empty_cache()
         x, w, v0 = (t.to(dev) for t in probe_inputs(*MAIN_SHAPE))

@@ -9,7 +9,8 @@ the final ``ok`` line):
    power limit;
 2. build   — compiles ``gr_lora_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
    one nvcc per source, all at once, and prints ptxas's registers, spills
-   and static shared memory of every kernel;
+   and static shared memory of every kernel; each of the peak epilogue's
+   ten instances (``peak_topm``, the merge) must have no stack frame;
 3. parity  — each hand-written kernel against its plain PyTorch version
    on the card at main-path shapes, with CUDA-event times of both:
    K1 rDFT peaks at SF7/SF8/SF9 and K2 overlap peaks at SF10/SF12 on 8
@@ -17,8 +18,10 @@ the final ``ok`` line):
    each call's peak allocation must stay below one [lanes, hops, K] f32
    array); K3 rDFT spectra, K4b direct
    spectra and K6 chunk spectra (each beside cuBLAS's time for its bare
-   product, torch.matmul of the same bf16 operands; ``peak_topm`` timed at
-   M = 8 and M = 32 on K3's spectra), K4 direct peaks (its
+   product, torch.matmul of the same bf16 operands; ``peak_topm`` at
+   M = 8 and M = 32 on K3's spectra, equal to ``peaks_plain`` bit for
+   bit, timed beside its byte bound, its plain version and torch.topk on
+   the masked fold), K4 direct peaks (its
    peak search fused: the call's peak allocation must stay below one
    [lanes, hops, K] f32 array) and K5 overlap spectra on one always-on
    block of 16 channels x 2048 hops at SF8 (K5 also on the SF12 block of
@@ -31,7 +34,8 @@ the final ``ok`` line):
    ties, heights within rtol 1e-3, and the dense K3 / K4b / K6 spectra
    within 1e-4 of the largest value; K2 and K5 round as their plain
    versions do: equal bit for bit; the merge that ends K1 (SF8) and K2
-   (SF10), its device time read from torch.profiler;
+   (SF10), its device time read from torch.profiler, beside its plain
+   version and torch.topk on the same candidates (their plain models');
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
    backend "fused": K1 and K2) fed the golden SF8 collision on every
@@ -135,7 +139,8 @@ Phases 4-8, 10 and 11 each assert what they check and that their kernels
 ran: every launch count is set to 0 just before a phase and read just
 after.  Two lines then give the port's kernels that stand for no TPU
 kernel, the dense ``peak_topm`` and the merge: their main-path shapes,
-ms, byte bound and launches over phases 4-11.  The line before the last is a JSON object with every kernel's
+ms, byte bound, plain and library ms, and launches over phases 4-11.
+The line before the last is a JSON object with every kernel's
 route, source, the TPU kernel it replaces (the tracker walk: the
 ``lax.scan`` it stands for), launches, max |delta| against its plain
 version, times, and the least time the card could take (``bound_ms``:
@@ -370,39 +375,81 @@ def _event_windows(iq_dev, gw, singles, sf, lanes, length):
                         for c, s in zip(chs, starts)]).contiguous()
 
 
-def _merge_ms(call, iters: int = 10) -> float:
+def _merge_ms(call, iters: int = 10, tries: int = 3) -> float:
     """Device ms a call of the merge kernel (csrc/peak_topm.cu
     peak_merge_kernel) that ends a fused peak lattice's ``call``, from
-    torch.profiler's trace."""
+    torch.profiler's trace: a window of ``iters`` calls must show one
+    merge a call (a window whose trace lost records is taken again, at
+    most ``tries`` times).  With the merge launched as a programmatic
+    dependent, its span includes its wait for the producer's end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-          if e.device_type() == DeviceType.CUDA and "peak_merge" in e.name()]
-    if len(ns) != iters:
-        fail(f"the profiler saw {len(ns)} merge kernels in {iters} calls")
-    return sum(ns) / 1e6 / iters
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and "peak_merge" in e.name()]
+        if len(ns) == iters:
+            return sum(ns) / 1e6 / iters
+        seen.append(len(ns))
+    fail(f"the profiler saw {seen} merge kernels in {tries} windows of "
+         f"{iters} calls")
 
 
-def _merge_row(name: str, call, rows: int, lists: int, pairs: int,
-               m: int, shape: str, port_only: dict) -> None:
-    """The merge's time and byte bound after one fused lattice: it reads
-    ``lists`` candidates and ``pairs`` edge pairs (16 B each: faw, bin,
-    fa, hs) and writes rows x M peaks."""
+def _merge_row(name: str, call, cands, m: int, shape: str,
+               port_only: dict) -> None:
+    """The merge's time after one fused lattice ``call``, beside its byte
+    bound, its plain version (``merge_peaks``) and torch.topk on the rows'
+    candidate values, both on ``cands``: the producer's (lists, pairs) as
+    its plain model gives them (``unit_candidates``, ``band_candidates``).
+    The bound counts what the merge must read of this data (each list up
+    to its first empty slot, each pair's two entries; 16 B an entry) and
+    the slots it writes."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.peak_epilogue import merge_peaks
+
+    lists, pairs = cands
+    rows = lists[0][..., 0, 0].numel()
+    nl, per = lists[0].shape[-2:]
+    filled = torch.isfinite(lists[0]).sum(-1)
+    read = int((filled + 1).clamp(max=per).sum())
+    npair = 0 if pairs is None else pairs[0].numel()
     ms = _merge_ms(call)
-    bound = _bound(16 * (lists + pairs) + 13 * rows * m)
+    bound = _bound(16 * (read + npair) + 13 * rows * m)
+    earlier = _bound(16 * (rows * nl * per + npair) + 13 * rows * m)
+    vals = lists[0].reshape(rows, -1)
+    if pairs is not None:
+        pv, pb = pairs[0], pairs[1]
+        ok = (pb >= 0) & (pv > pv.flip(-1))
+        vals = torch.cat([vals, torch.where(ok, pv, -torch.inf)
+                          .reshape(rows, -1)], -1)
+    library_ms = _time_ms(lambda: torch.topk(vals, m, dim=-1), 10)
+    plain_ms = _time_ms(lambda: merge_peaks(lists, pairs, m), 3)
     print(f"parity merge after {name} {shape}: ms={ms:.4f} "
-          f"bound_ms={bound[0]:.6f} (candidates {lists}, edge pairs "
-          f"{pairs})")
+          f"bound_ms={bound[0]:.6f} (list entries read {read} of "
+          f"{rows * nl * per}, edge-pair entries {npair}; every entry: "
+          f"{earlier[0]:.6f}) plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (torch.topk of the rows' "
+          f"candidates)")
     port_only.setdefault("merge", []).append(
-        {"after": name, "shape": shape, "ms": ms, "bound_ms": bound[0]})
+        {"after": name, "shape": shape, "ms": ms, "bound_ms": bound[0],
+         "plain_ms": plain_ms, "library_ms": library_ms})
+
+
+def _cands_on(cands, dev):
+    """(lists, pairs) of a plain candidate model moved to ``dev``."""
+    lists, pairs = cands
+    return (tuple(t.to(dev) for t in lists),
+            None if pairs is None else tuple(t.to(dev) for t in pairs))
 
 
 def parity(gw, iq_dev, singles, report: dict, port_only: dict) -> None:
@@ -412,8 +459,10 @@ def parity(gw, iq_dev, singles, report: dict, port_only: dict) -> None:
     import torch
 
     from gr_lora_tpu_torch.models.pyramid import BlockedLattice
-    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks, _bands
-    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks, num_units
+    from gr_lora_tpu_torch.ops.overlap_peaks import (OverlapPeaks, _bands,
+                                                     band_candidates)
+    from gr_lora_tpu_torch.ops.rdft_peaks import (RdftPeaks, num_units,
+                                                  unit_candidates)
 
     lanes = gw.event_batch
     for sf in (7, 8, 9):
@@ -445,10 +494,11 @@ def parity(gw, iq_dev, singles, report: dict, port_only: dict) -> None:
         report["rdft_peaks"].append(_row(err, ms, plain_ms, shape, bound))
         if sf == 8:
             rows, units = lanes * mod.num_frames, num_units(fr.k)
-            _merge_row("K1", lambda: mod(x), rows,
-                       rows * units * mod.max_peaks,
-                       rows * 4 * (units - 1), mod.max_peaks,
-                       f"SF8 [{rows}, {units} lists]", port_only)
+            cands = unit_candidates(*(t.cpu() for t in fr.plain(x)),
+                                    mod.threshold, mod.max_peaks)
+            _merge_row("K1", lambda: mod(x), _cands_on(cands, x.device),
+                       mod.max_peaks, f"SF8 [{rows}, {units} lists]",
+                       port_only)
     for sf in (10, 12):
         st = gw.sf_states[sf]
         lat = gw.lattice(sf)
@@ -486,11 +536,12 @@ def parity(gw, iq_dev, singles, report: dict, port_only: dict) -> None:
         if sf == 10:
             fr = mod.front
             rows, bands = lanes * mod.num_hops, _bands(fr.f, fr.k)
-            _merge_row("K2", lambda: mod.from_chunks(g), rows,
-                       rows * bands * mod.max_peaks,
-                       rows * 2 * (bands if fr.f == 2 * fr.k else 1),
-                       mod.max_peaks, f"SF10 [{rows}, {bands} lists]",
-                       port_only)
+            cands = band_candidates(
+                *(t.cpu() for t in fr.plain_from_chunks(g)), mod.plan,
+                mod.threshold, mod.max_peaks)
+            _merge_row("K2", lambda: mod.from_chunks(g),
+                       _cands_on(cands, g.device), mod.max_peaks,
+                       f"SF10 [{rows}, {bands} lists]", port_only)
 
 
 def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
@@ -715,21 +766,55 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict,
 
 
 def _time_topm(spectra, threshold: float, port_only: dict) -> None:
-    """peak_topm's two instances on one block of dense spectra: M = 8 (the
-    main path's register list) and M = 32 (the refilling instance)."""
-    from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm
+    """peak_topm on one block of dense spectra at M = 8 (the main path's
+    list of 8) and M = 32 (the rescanning instance), each equal to
+    peaks_plain bit for bit; its byte bound (faw read once, fa and hs at
+    the valid peaks as a 32-byte sector each, the slots written; the
+    earlier yardstick, three whole arrays, printed beside it), the plain
+    version's time and torch.topk's on the masked fold (the counterpart
+    of the JAX epilogue's lax.top_k, the fold made before the timed
+    window)."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm, peaks_plain
 
     fa, faw, hs = spectra
     k = faw.shape[-1]
     rows = faw.numel() // k
-    ms = {m: _time_ms(lambda m=m: launch_topm(fa, faw, hs, threshold, m), 5)
-          for m in (8, 32)}
-    bound = _bound(_nbytes(fa, faw, hs) + 13 * rows * 8)
-    print(f"parity peak_topm [{rows} rows, {k}] (K3's spectra): "
-          f"M8_ms={ms[8]:.4f} M32_ms={ms[32]:.4f} bound_ms={bound[0]:.4f}")
-    port_only["peak_topm"] = [{"shape": f"[{rows}, {k}] M 8", "ms": ms[8],
-                               "bound_ms": bound[0],
-                               "ms_m32": ms[32]}]
+    found = {}
+    for m in (8, 32):
+        kern = launch_topm(fa, faw, hs, threshold, m)
+        plain = peaks_plain(fa, faw, hs, threshold, m)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("bins", "h", "h_single", "valid"), kern,
+                              plain):
+            if not torch.equal(a, b):
+                fail(f"peak_topm M {m}: {part} differs from peaks_plain")
+        found[m] = int(plain[3].sum())
+        del kern, plain
+    ms = {m: _time_ms(lambda m=m: launch_topm(fa, faw, hs, threshold, m),
+                      20) for m in (8, 32)}
+    bound = {m: _bound(_nbytes(faw) + 2 * 32 * found[m] + 13 * rows * m)
+             for m in (8, 32)}
+    earlier = _bound(_nbytes(fa, faw, hs) + 13 * rows * 8)
+    plain_ms = _time_ms(lambda: peaks_plain(fa, faw, hs, threshold, 8), 3)
+    left, right = torch.roll(faw, 1, -1), torch.roll(faw, -1, -1)
+    vals = torch.where((faw > threshold) & (faw > left) & (faw > right),
+                       faw, -torch.inf)
+    del left, right
+    library_ms = _time_ms(lambda: torch.topk(vals, 8, dim=-1), 20)
+    del vals
+    print(f"parity peak_topm [{rows} rows, {k}] (K3's spectra): equal to "
+          f"peaks_plain bit for bit at M 8 and 32; M8_ms={ms[8]:.4f} "
+          f"bound_ms={bound[8][0]:.6f} ({found[8]} valid peaks; the "
+          f"earlier yardstick, fa, faw and hs whole: {earlier[0]:.6f}) "
+          f"M32_ms={ms[32]:.4f} bound_ms={bound[32][0]:.6f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"(torch.topk, M 8, on the masked fold)")
+    port_only["peak_topm"] = [{
+        "shape": f"[{rows}, {k}] M 8", "ms": ms[8], "bound_ms": bound[8][0],
+        "ms_m32": ms[32], "bound_ms_m32": bound[32][0],
+        "plain_ms": plain_ms, "library_ms": library_ms}]
 
 
 def _product_operands(mod, x):
@@ -2929,6 +3014,25 @@ def tracker_phase(iq, singles, ns, ao, msf, wide, dev, card: str,
           f"{launches['device_tracker_global']} (11c)")
 
 
+def _peak_resources() -> None:
+    """Each instance of the peak epilogue's kernels (peak_topm: float4 or
+    f32 rows x lists of 8, 16, 16 with the rescan; the merge: lists of 8
+    or 16 x 8-lane groups or warps) with ptxas's registers, stack and
+    spills; fails on a stack frame (a per-lane list or row segment left
+    its registers)."""
+    from gr_lora_tpu_torch.ops import _build
+
+    found = {n: u for n, u in _build.resources().items()
+             if "peak_topm_kernel" in n or "peak_merge_kernel" in n}
+    if len(found) != 10:
+        fail(f"ptxas reported {len(found)} peak kernel instances, not 10")
+    for name, usage in sorted(found.items()):
+        print(f"ptxas peak instance {_kernel_name(name)}: {usage}")
+        frame = re.search(r"(\d+) bytes stack frame", usage)
+        if frame is None or int(frame.group(1)) != 0:
+            fail(f"{_kernel_name(name)}: a stack frame ({usage})")
+
+
 #: Where each peak kernel's top-M runs.
 EPILOGUE = {
     "rdft_peaks": "fused: gr_lora_tpu_torch/csrc/rdft_spectra.cu (sweep "
@@ -2998,6 +3102,7 @@ def main() -> None:
           f"{_build.LIB_PATH.name} in {time.perf_counter() - t0:.2f} s")
     for name, usage in _build.resources().items():
         print(f"ptxas {_kernel_name(name)}: {usage}")
+    _peak_resources()
     for line in _build.PTXAS_PATH.read_text().splitlines():
         if "Performance Loss" in line:     # e.g. serialised wgmma
             print(f"ptxas {line.strip()}")
@@ -3086,11 +3191,16 @@ def main() -> None:
     # launch above) and the merge that ends every K1 and K2 launch.
     topm, merge = port_only["peak_topm"][0], port_only["merge"]
     print(f"port-only peak_topm dense {topm['shape']}: ms={topm['ms']:.4f} "
-          f"(M 32 {topm['ms_m32']:.4f}) bound_ms={topm['bound_ms']:.6f} "
+          f"bound_ms={topm['bound_ms']:.6f} (M 32 {topm['ms_m32']:.4f}, "
+          f"bound {topm['bound_ms_m32']:.6f}) "
+          f"plain_ms={topm['plain_ms']:.4f} "
+          f"library_ms={topm['library_ms']:.4f} "
           f"launches={peak_epilogue.topm_launches} (phases 4-11)")
     print("port-only merge (csrc/peak_topm.cu peak_merge_kernel): "
           + "; ".join(f"after {r['after']} {r['shape']} ms={r['ms']:.4f} "
-                      f"bound_ms={r['bound_ms']:.6f}" for r in merge)
+                      f"bound_ms={r['bound_ms']:.6f} "
+                      f"plain_ms={r['plain_ms']:.4f} "
+                      f"library_ms={r['library_ms']:.4f}" for r in merge)
           + f"; launches={launches['rdft_peaks'] + launches['overlap_peaks']}"
           " (one a K1 or K2 launch, phases 4-11)")
     foreign = sorted(m for m in sys.modules

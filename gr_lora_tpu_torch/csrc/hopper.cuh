@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels, as
 // inline PTX: mbarriers, 2-D and 3-D TMA tile loads (cp.async.bulk.tensor)
 // and their tensor maps (128- and 64-byte swizzles), wgmma descriptors and
-// the m64n256k16 and m64n128k16 bf16 products, and the per-thread cp.async
-// copies.
+// the m64n256k16 and m64n128k16 bf16 products, the per-thread cp.async
+// copies, and the programmatic dependent launch's wait and trigger.
 //
 // Tensor maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPointByVersion, so the library links against the CUDA
@@ -324,6 +324,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- programmatic dependent launch ------------------------------------
+
+// A grid launched as a programmatic dependent (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization) may start before
+// the grid before it on the stream ends: this waits until that grid has
+// ended and its stores are visible (a no-op in a grid launched plainly).
+__device__ __forceinline__ void grid_dependency_wait() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// The dependent grid may launch once every block of this one has called
+// this or ended; what it reads still waits in grid_dependency_wait.
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 }  // namespace hopper

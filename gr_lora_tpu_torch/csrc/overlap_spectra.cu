@@ -433,6 +433,9 @@ overlap_spectra_kernel(const float2* __restrict__ g,
                                       c, b, b1, lane, hops, f, k);
         }
     }
+    // K2: this block's lists and pairs are stored; the merge may launch
+    // (it waits for the grid's end before it reads them).
+    if constexpr (kPeaks) hopper::launch_dependents();
     hopper::cp_async_wait<0>();
 }
 

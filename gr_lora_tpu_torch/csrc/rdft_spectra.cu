@@ -522,6 +522,9 @@ rdft_product_kernel(const __grid_constant__ CUtensorMap map_a,
             __syncwarp();
         }
     }
+    // K1: this block's lists and pairs are stored; the merge may launch
+    // (it waits for the grid's end before it reads them).
+    if constexpr (kPeaks) hopper::launch_dependents();
 }
 
 

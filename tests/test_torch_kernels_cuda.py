@@ -160,19 +160,27 @@ def test_overlap_kernel_matches_plain(dev, sf, ff, p, m):
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 64])
 def test_topm_kernel_equals_plain(dev, m):
     """Random folds with many peaks, exact ties and peaks on the cyclic
-    edges: the kernel epilogue is the plain one, bit for bit."""
-    rng = np.random.default_rng(m)
-    faw = rng.random((37, 1024)).astype(np.float32) * 10
-    faw[:, ::97] = 9.5                       # equal values, distinct bins
-    faw[:, 0] = 12.0                         # wrap-around neighbours
-    faw[:, -1] = 11.0
-    fa = rng.random((37, 1024)).astype(np.float32)
-    hs = rng.random((37, 1024)).astype(np.float32)
-    t = [torch.from_numpy(a).to(dev) for a in (fa, faw, hs)]
-    kern = launch_topm(*t, 5.0, m)
-    plain = peaks_plain(*t, 5.0, m)
-    for a, b in zip(kern, plain):
-        assert torch.equal(a.cpu(), b.cpu())
+    edges, rows with no peak and with plateaus, at K 1024, a ragged 1100
+    (float4 rows, a masked tail) and 1021 (no multiple of 4: one f32 a
+    lane): the kernel epilogue is the plain one, bit for bit."""
+    for k in (1024, 1100, 1021):
+        rng = np.random.default_rng(m + k)
+        faw = rng.random((37, k)).astype(np.float32) * 10
+        faw[:, ::97] = 9.5                   # equal values, distinct bins
+        faw[:, 0] = 12.0                     # wrap-around neighbours
+        faw[:, -1] = 11.0
+        faw[5] = rng.random(k) * 4.9         # no peak above the threshold
+        faw[6] = 7.0                         # flat: no strict maximum
+        faw[7, 100:102] = faw[7, 300:303] = 20.0      # plateaus
+        faw[7, [-1, 0]] = 30.0               # a plateau across the wrap
+        fa = rng.random((37, k)).astype(np.float32)
+        hs = rng.random((37, k)).astype(np.float32)
+        t = [torch.from_numpy(a).to(dev) for a in (fa, faw, hs)]
+        kern = launch_topm(*t, 5.0, m)
+        plain = peaks_plain(*t, 5.0, m)
+        assert not plain[3][5:7].any()
+        for a, b in zip(kern, plain):
+            assert torch.equal(a.cpu(), b.cpu()), k
 
 
 def test_kernel_wrappers_reject_bad_input(dev):
