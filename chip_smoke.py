@@ -133,13 +133,33 @@ the final ``ok`` line):
    the host tracker and then ``tracker="device"`` on the same uncurated
    traffic: check_soak holds the device run to the host tracker's
    packets, the injected packets neither decodes printed; (e) apps.gateway --collision --tracker device on phase
-   10's capture equal to the hand chain with the device tracker.
+   10's capture equal to the hand chain with the device tracker;
+12. mesh — the shard grid (dist/mesh, dist/gateway, dist/multihost), its
+   slots all on the card: (a) the FSM gateway on {ch: 2, t: 4} over
+   phase 9a's fixture with each channel's packet across a t seam: every
+   payload byte-exact once, at demod_fn's position over the whole capture
+   (mesh=None), dropped 0; the grid's pass beside mesh=None's in turns,
+   the halo bytes a block, one profiled grid pass; (b) phase 5's
+   always-on gateway on {ch: 2, t: 4} at fastp (K5) and fused_direct (K4)
+   with the host tracker and at fastp with tracker="device" (the walk):
+   phase 5's PDUs, no deviation; (c) phase 4's north star on {ch: 4}:
+   every golden PDU and single, phase 4's PDUs, K1 and K2 launched; (d)
+   two ranks on the card over gloo (NCCL refuses two ranks on one
+   device), tests/torch_multihost_worker.py's five scenarios of
+   tests/test_multihost.py (the FSM seam packet at 64 channels; the
+   always-on gateway row-owned, time-only with its lattice gathered, the
+   gated gateway split by channel and the device tracker, at 16): each
+   rank's packets equal the single-process run's by ownership, the
+   device tracker's copy to the host under 64 KB; which gloo
+   collectives take CUDA tensors, printed; then a one-rank NCCL group
+   runs (a) with gather_results=True (``--nccl-rank``, a child process):
+   its packets equal (a)'s.
 
-Phases 4-8, 10 and 11 each assert what they check and that their kernels
+Phases 4-8 and 10-12 each assert what they check and that their kernels
 ran: every launch count is set to 0 just before a phase and read just
 after.  Two lines then give the port's kernels that stand for no TPU
 kernel, the dense ``peak_topm`` and the merge: their main-path shapes,
-ms, byte bound, plain and library ms, and launches over phases 4-11.
+ms, byte bound, plain and library ms, and launches over phases 4-12.
 The line before the last is a JSON object with every kernel's
 route, source, the TPU kernel it replaces (the tracker walk: the
 ``lax.scan`` it stands for), launches, max |delta| against its plain
@@ -152,8 +172,11 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -562,10 +585,10 @@ def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
     return out, alloc
 
 
-def main_path(gw, iq_dev, singles, card: str):
+def main_path(gw, iq_dev, singles, card: str, label: str = "main"):
     """Phase 4: feed the fixture twice, flush, check the decodes.  Returns
     (launches, the decoded {channel: {(sf, payload)}}, packet count, the
-    second feed's wall split)."""
+    second feed's wall split).  Phase 12c runs it on a grid."""
     import torch
 
     from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
@@ -619,7 +642,7 @@ def main_path(gw, iq_dev, singles, card: str):
     w = walls[1]
     sps = channels * t / secs[1]
     npk = sum(len(f) for f in feeds) + len(tail)
-    print(f"main north-star {channels}ch x SF7-12 T={t} x2 feeds + flush "
+    print(f"{label} north-star {channels}ch x SF7-12 T={t} x2 feeds + flush "
           f"on {card}: packets={npk} (feed1={len(feeds[0])} "
           f"feed2={len(feeds[1])} flush={len(tail)}) "
           f"feed_s=[{secs[0]:.4f}, {secs[1]:.4f}] flush_s={flush_s:.4f} "
@@ -769,11 +792,10 @@ def _time_topm(spectra, threshold: float, port_only: dict) -> None:
     """peak_topm on one block of dense spectra at M = 8 (the main path's
     list of 8) and M = 32 (the rescanning instance), each equal to
     peaks_plain bit for bit; its byte bound (faw read once, fa and hs at
-    the valid peaks as a 32-byte sector each, the slots written; the
-    earlier yardstick, three whole arrays, printed beside it), the plain
-    version's time and torch.topk's on the masked fold (the counterpart
-    of the JAX epilogue's lax.top_k, the fold made before the timed
-    window)."""
+    the valid peaks as a 32-byte sector each, the slots written), the
+    plain version's time and torch.topk's on the masked fold (the
+    counterpart of the JAX epilogue's lax.top_k, the fold made before the
+    timed window)."""
     import torch
 
     from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm, peaks_plain
@@ -796,7 +818,6 @@ def _time_topm(spectra, threshold: float, port_only: dict) -> None:
                       20) for m in (8, 32)}
     bound = {m: _bound(_nbytes(faw) + 2 * 32 * found[m] + 13 * rows * m)
              for m in (8, 32)}
-    earlier = _bound(_nbytes(fa, faw, hs) + 13 * rows * 8)
     plain_ms = _time_ms(lambda: peaks_plain(fa, faw, hs, threshold, 8), 3)
     left, right = torch.roll(faw, 1, -1), torch.roll(faw, -1, -1)
     vals = torch.where((faw > threshold) & (faw > left) & (faw > right),
@@ -806,8 +827,7 @@ def _time_topm(spectra, threshold: float, port_only: dict) -> None:
     del vals
     print(f"parity peak_topm [{rows} rows, {k}] (K3's spectra): equal to "
           f"peaks_plain bit for bit at M 8 and 32; M8_ms={ms[8]:.4f} "
-          f"bound_ms={bound[8][0]:.6f} ({found[8]} valid peaks; the "
-          f"earlier yardstick, fa, faw and hs whole: {earlier[0]:.6f}) "
+          f"bound_ms={bound[8][0]:.6f} ({found[8]} valid peaks) "
           f"M32_ms={ms[32]:.4f} bound_ms={bound[32][0]:.6f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"(torch.topk, M 8, on the masked fold)")
@@ -980,9 +1000,36 @@ def _ao_pdus(pkts, channels: int, what: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """Times the passes of Python's garbage collector while entered:
+    yields {generation: [passes, seconds]}, filled in as they happen."""
+    got, start = {}, [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            g = got.setdefault(info["generation"], [0, 0.0])
+            g[0] += 1
+            g[1] += time.perf_counter() - start[0]
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield got
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def _gc_txt(got: dict) -> str:
+    return " ".join(f"gen{g}={n}x{s:.4f}s" for g, (n, s) in sorted(
+        got.items())) or "none"
+
+
 def always_on(cfg, iq, dev, card: str, launches: dict,
               tracker: str = "host", host: dict | None = None,
-              device_pools: dict | None = None) -> dict:
+              device_pools: dict | None = None, mesh=None,
+              label: str | None = None) -> dict:
     """Phase 5: the always-on gateway once per kernel backend: two passes
     of the fixture in AO_CHUNK chunks (numpy, as bench.py feeds it), then
     a flush; both golden PDUs must decode on every channel for each of
@@ -990,7 +1037,8 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
     (fetched bytes, {channel: PDUs})}.  Phase 11c runs it again with
     ``tracker="device"`` over the backends of ``host`` (phase 5's
     result): the same PDUs on every channel, no deviation; with
-    ``device_pools`` the device tracker's pools."""
+    ``device_pools`` the device tracker's pools.  Phase 12b passes a
+    shard grid (``mesh``) and its ``label``."""
     import torch
 
     from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
@@ -1000,9 +1048,13 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
     for backend, name in AO_BACKENDS.items():
         if host is not None and backend not in host:
             continue
+        # Free the earlier phases' garbage before the timed passes: the
+        # collector pass that freed it once stalled 12b's pass 2 (PERF.md).
+        gc.collect()
         gw = PyramidGateway(cfg, channels, block_hops=AO_BLOCK_HOPS,
                             max_peaks=8, backend=backend, tracker=tracker,
-                            device_pools=device_pools, device=dev)
+                            device_pools=device_pools, mesh=mesh,
+                            device=dev)
         mods = _kernel_modules(gw.lattice, name)
         for m in mods:
             m.launches = 0
@@ -1010,9 +1062,10 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
         pkts, secs, walls = [], [], []
         for _ in range(2):
             t0 = time.perf_counter()
-            for lo in range(0, t, AO_CHUNK):
-                pkts += gw.feed(iq[:, lo:lo + AO_CHUNK])
-            torch.cuda.synchronize()
+            with gc_pauses() as gcp:
+                for lo in range(0, t, AO_CHUNK):
+                    pkts += gw.feed(iq[:, lo:lo + AO_CHUNK])
+                torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             walls.append(gw.wall_reset())
         pkts += gw.flush()
@@ -1022,7 +1075,8 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
         if count <= 0:
             fail(f"always-on {backend}: kernel {name} was not launched")
         what = f"always-on {backend} tracker={tracker}" + (
-            f" pools={device_pools}" if device_pools else "")
+            f" pools={device_pools}" if device_pools else "") + (
+            f" grid={mesh.shape}" if mesh is not None else "")
         pdus = _ao_pdus(pkts, channels, what)
         out[backend] = (gw.fetched_bytes, pdus)
         extra = ""
@@ -1030,21 +1084,24 @@ def always_on(cfg, iq, dev, card: str, launches: dict,
             if pdus != host[backend][1]:
                 fail(f"{what}: PDUs differ from the host tracker's")
             dev_s = gw.stats()
-            if dev_s["deviations"]:
+            if tracker == "device" and dev_s["deviations"]:
                 fail(f"{what}: deviations {dev_s}")
             cut = host[backend][0] / max(gw.fetched_bytes, 1)
-            extra = (f" same PDUs as phase 5 on every channel, deviations=0,"
-                     f" fetched_bytes={gw.fetched_bytes} (host tracker "
+            extra = (" same PDUs as phase 5 on every channel,"
+                     + (" deviations=0," if tracker == "device" else "")
+                     + f" fetched_bytes={gw.fetched_bytes} (host tracker "
                      f"{host[backend][0]}, {cut:.1f}x)")
         w = walls[1]
         sps = channels * t / secs[1]
-        print(f"{'tracker 11c' if host is not None else 'main'} {what} "
+        print(f"{label or ('tracker 11c' if host is not None else 'main')} "
+              f"{what} "
               f"{channels}ch SF{cfg.sf} "
               f"block_hops={AO_BLOCK_HOPS} T={t} x2 passes + flush on "
               f"{card}: packets={len(pkts)} pass_s=[{secs[0]:.4f}, "
               f"{secs[1]:.4f}] pass2_wall[dispatch={w['dispatch']:.4f} "
               f"fetch={w['fetch']:.4f} tracker={w['tracker']:.4f} "
-              f"decode={w['decode']:.4f}] pass2_samples_per_s={sps:.1f} "
+              f"decode={w['decode']:.4f}] pass2_gc_pauses[{_gc_txt(gcp)}] "
+              f"pass2_samples_per_s={sps:.1f} "
               f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
               f"launches={{'{name}': {count}}}{extra}")
         del gw
@@ -3014,6 +3071,432 @@ def tracker_phase(iq, singles, ns, ao, msf, wide, dev, card: str,
           f"{launches['device_tracker_global']} (11c)")
 
 
+#: Phase 12: the shard grid (dist/mesh) on the one card: {ch, t} slots,
+#: all on cuda:0, one rank; then two ranks on it over gloo.
+MESH_GRID = (2, 4)
+MESH_TIMED = 3
+MESH_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_multihost_worker.py")
+MESH_SCENARIOS = ("fsm", "pyramid_rows", "pyramid_time", "gated",
+                  "device_tracker")
+MESH_FSM_CHANNELS = 64           # 12d's FSM case
+MESH_PYR_CHANNELS = 16           # 12d's Pyramid cases
+MESH_TIMEOUT_S = 300
+#: 12a's detections that decode no payload, (channel, global position):
+#: on the grid channel 21's at 0, where shard 0's zero left halo meets the
+#: noise (ROADMAP Queue 3), as on the JAX package's mesh
+#: (tests/test_torch_dist.py holds the two equal on channels 20-23);
+#: mesh=None has none.
+MESH_FSM_UNDECODABLE = [(21, 0)]
+
+
+def mesh_fsm_fixture(cfg, block: int, keep=None):
+    """Phase 9a's fixture (noise 0.05 from default_rng(0), one packet a
+    channel) with each channel's packet across a t seam: starting one to
+    three symbols (and a drawn fraction of one) before seam c % 3 + 1 of
+    blocks of ``block`` samples, so its preamble straddles the seam and
+    the shard after it detects it.  (A packet detected just before a
+    seam puts the next shard's window mid-packet, where the FSM may take
+    payload chirps for a preamble and report a false packet in its own
+    region; the JAX package's mesh does the same.)  The noise is drawn a
+    channel at a time (the draws of one [64, 1024 n, 2] call), and only
+    the channels in ``keep`` (default: all) are kept.  Returns (iq
+    float32 [kept, 1024 n, 2], their offsets)."""
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    n = cfg.num_samples
+    total = FSM_SYMBOLS * n
+    keep = range(FSM_CHANNELS) if keep is None else keep
+    rng = np.random.default_rng(0)
+    pkt = to_ri(modulate(encode(FSM_PAYLOAD, cfg), cfg, pad_front=0,
+                         pad_back=0))
+    rows = {}
+    for c in range(FSM_CHANNELS):
+        row = rng.normal(0.0, 0.05, (total, 2)).astype(np.float32)
+        if c in keep:
+            rows[c] = row
+    iq = np.stack([rows.pop(c) for c in keep])
+    offs = [(c % 3 + 1) * block - int(rng.integers(n, 4 * n))
+            for c in range(FSM_CHANNELS)]
+    for j, c in enumerate(keep):
+        iq[j, offs[c]:offs[c] + len(pkt)] += pkt
+    return iq, [offs[c] for c in keep]
+
+
+def _fsm_packets(cfg, lists) -> list:
+    """[[channel, position, symbols, payload hex or None]] of
+    gateway_receive's lists, CRC-checked payloads only."""
+    from gr_lora_tpu_torch.core.codec import decode
+
+    out = []
+    for c, chan in enumerate(lists):
+        for pos, syms in chan:
+            r = decode(syms, cfg)
+            out.append([c, int(pos), syms.tolist(),
+                        bytes(r.payload).hex() if r.ok and r.crc_ok
+                        else None])
+    return out
+
+
+def _mesh_fsm_plan(cfg, dev, gather: bool):
+    """12a's plan: the {2, 4} grid on ``dev``, blocks of a quarter of the
+    capture."""
+    from gr_lora_tpu_torch.dist.gateway import make_gateway, make_mesh
+
+    block = FSM_SYMBOLS * cfg.num_samples // MESH_GRID[1]
+    grid = make_mesh(*MESH_GRID, devices=[dev] * (MESH_GRID[0]
+                                                 * MESH_GRID[1]))
+    return make_gateway(cfg, grid, FSM_CHANNELS, block, max_packets=4,
+                        gather_results=gather), block
+
+
+def mesh_fsm(dev, card: str) -> list:
+    """Phase 12a: dist/gateway's FSM gateway on a {ch: 2, t: 4} grid of
+    slots on the card over mesh_fsm_fixture: every payload byte-exact with
+    its CRC, once, at the position demod_fn gives over the whole capture
+    (mesh=None), dropped 0, the detections that decode no payload
+    MESH_FSM_UNDECODABLE's on the grid and none with mesh=None; the wall
+    of a grid pass beside mesh=None's on
+    the same capture (in turns), the halo bytes a block and one profiled
+    grid pass.  Returns the packets (12d's one-rank NCCL run must equal
+    them)."""
+    import torch
+
+    from gr_lora_tpu_torch.dist.gateway import (gateway_receive,
+                                                left_halo_len,
+                                                right_halo_len)
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+
+    cfg = fsm_config()
+    plan, block = _mesh_fsm_plan(cfg, dev, gather=False)
+    iq, offs = mesh_fsm_fixture(cfg, block)
+    x = torch.from_numpy(iq).to(dev)
+    t0 = time.perf_counter()
+    lists, stats = gateway_receive(plan, x, cfg, return_stats=True)
+    first_s = time.perf_counter() - t0
+    got = _fsm_packets(cfg, lists)
+    one = demod_fn(cfg, iq.shape[1], 4, device=dev)
+    ref = _fsm_packets(cfg, [[(p, np.asarray(s, np.uint16)) for p, s in ch]
+                             for ch in _whole_lists(one(x))])
+    bad = [c for c in range(FSM_CHANNELS)
+           if [(p[3] or "")[:2 * len(FSM_PAYLOAD)] for p in got
+               if p[0] == c and p[3]] != [FSM_PAYLOAD.hex()]]
+    if bad:
+        fail(f"mesh 12a: channels {bad} did not decode their payload once")
+    ok_got = [g[:3] for g in got if g[3]]
+    ok_ref = [r[:3] for r in ref if r[3]]
+    if ok_got != ok_ref:
+        diff = [(g[:2], r[:2]) for g, r in zip(ok_got, ok_ref) if g != r]
+        fail(f"mesh 12a: packets differ from mesh=None's: {diff[:8]}")
+    if stats["dropped"]:
+        fail(f"mesh 12a: dropped {stats['dropped']}")
+    undecodable = {"grid": [tuple(g[:2]) for g in got if not g[3]],
+                   "none": [tuple(r[:2]) for r in ref if not r[3]]}
+    if undecodable != {"grid": MESH_FSM_UNDECODABLE, "none": []}:
+        fail(f"mesh 12a: detections that decode no payload {undecodable}, "
+             f"expected grid={MESH_FSM_UNDECODABLE} none=[]")
+    grid_s, none_s = [], []
+    for _ in range(MESH_TIMED):
+        for fn, secs in ((lambda: plan.fn(x), grid_s),
+                         (lambda: one(x), none_s)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    mesh = plan.mesh
+    cpr = FSM_CHANNELS // mesh.shape["ch"]
+    halo = len(mesh.local) * cpr * (left_halo_len(cfg)
+                                    + right_halo_len(cfg)) * 8
+    wall, busy, split, prof_cost = _profiled_pass(lambda: plan.fn(x))
+    ext = left_halo_len(cfg) + block + right_halo_len(cfg)
+    steps = {"grid": max(lp.steps for lp in demod_fn(
+                 cfg, ext, 4, device=dev).loops.values()),
+             "none": max(lp.steps for lp in one.loops.values())}
+    print(f"mesh 12a fsm gateway {FSM_CHANNELS}ch SF8 (phase 9a's fixture, "
+          f"packets across t seams) grid={mesh.shape} {len(mesh.local)} "
+          f"slots on {dev} block={block} on {card}: decoded={FSM_CHANNELS}/"
+          f"{FSM_CHANNELS} once, positions equal to mesh=None, dropped=0, "
+          f"detections that decode no payload (channel, position) "
+          f"grid={undecodable['grid']} none={undecodable['none']} "
+          f"first_pass_s={first_s:.4f} grid_pass_s="
+          f"{[round(s, 4) for s in grid_s]} mesh_none_pass_s="
+          f"{[round(s, 4) for s in none_s]} (in turns) steps_per_pass "
+          f"grid={steps['grid']} none={steps['none']} lanes grid="
+          f"{len(mesh.local) * cpr} none={FSM_CHANNELS} "
+          f"halo_bytes_per_block={halo} (a device copy within the rank) "
+          f"profiled_grid_pass_s={wall:.4f} device_busy_ms={busy:.2f} "
+          f"idle={1 - busy / (1e3 * wall):.3f} "
+          f"device_ms[{_split_txt(split)}] profiler_read_s={prof_cost:.1f}")
+    return got
+
+
+def _whole_lists(outs) -> list:
+    """demod_fn outputs as per-channel [(position, symbols list)]."""
+    host = [o.cpu().numpy() for o in outs]
+    return [_lane_packets(host, c) for c in range(host[0].shape[0])]
+
+
+def mesh_always_on(cfg, iq, host: dict, dev, card: str,
+                   launches: dict) -> None:
+    """Phase 12b: phase 5's always-on gateway on a {ch: 2, t: 4} grid of
+    slots on the card (2048-hop blocks, 512 hops a t slot): fastp (K5)
+    and fused_direct (K4) with the host tracker, fastp with
+    tracker="device" (the walk): phase 5's PDUs on every channel (11c's
+    are phase 5's), no deviation, each kernel launched."""
+    from gr_lora_tpu_torch.dist.gateway import make_mesh
+    from gr_lora_tpu_torch.ops import device_tracker as walk_ops
+
+    grid = make_mesh(*MESH_GRID, devices=[dev] * (MESH_GRID[0]
+                                                 * MESH_GRID[1]))
+    ao = {b: host[b] for b in ("fastp", "fused_direct")}
+    always_on(cfg, iq, dev, card, launches, host=ao, mesh=grid,
+              label="mesh 12b")
+    before = walk_ops.launches
+    always_on(cfg, iq, dev, card, launches, tracker="device",
+              host={"fastp": host["fastp"]}, mesh=grid, label="mesh 12b")
+    walked = walk_ops.launches - before
+    if walked <= 0:
+        fail("mesh 12b: the tracker walk was not launched")
+    launches["device_tracker"] += walked
+    print(f"mesh 12b tracker walk launches={walked}")
+
+
+def mesh_north_star(iq, singles, ns_pdus: dict, dev, card: str,
+                    launches: dict) -> None:
+    """Phase 12c: phase 4's north star on a {ch: 4} grid of slots on the
+    card: every golden PDU and single, the PDUs equal to phase 4's, K1
+    and K2 launched."""
+    import torch
+
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+    from gr_lora_tpu_torch.dist.gateway import make_mesh
+
+    grid = make_mesh(4, 1, devices=[dev] * 4)
+    gw = TriggeredPyramidGateway(base_config(), CHANNELS, sfs=SFS,
+                                 max_payload_len=16, backend="fused",
+                                 tracker="host", mesh=grid)
+    iq_dev = torch.from_numpy(iq).to(dev)
+    counts, every, _, _ = main_path(gw, iq_dev, singles, card,
+                                    label=f"mesh 12c grid={grid.shape}")
+    if every != ns_pdus:
+        fail("mesh 12c: the PDUs differ from phase 4's")
+    for name, count in counts.items():
+        launches[name] += count
+    print(f"mesh 12c same PDUs as phase 4 on every channel, launches "
+          f"{counts}")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_ranks(argvs: list, what: str) -> list:
+    """Start one process a rank, wait for every one (MESH_TIMEOUT_S),
+    fail if any fails; returns each rank's JSON lines."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    procs = [subprocess.Popen([sys.executable] + argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for argv in argvs]
+    outs = []
+    try:
+        for rank, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: rank {rank} did not finish in "
+                     f"{MESH_TIMEOUT_S} s")
+            if p.returncode != 0:
+                fail(f"{what}: rank {rank} exited {p.returncode}:\n"
+                     f"{err[-3000:]}")
+            outs.append([json.loads(ln) for ln in out.splitlines()
+                         if ln.startswith("{")])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _mesh_references(dev) -> dict:
+    """12d's single-process results on the same fixtures: the FSM case on
+    an in-process {1, 8} grid of the card (the ranks' grid shape), the
+    Pyramid cases with mesh=None on the card."""
+    import importlib.util
+
+    import torch
+
+    from gr_lora_tpu_torch.core.codec import decode
+    from gr_lora_tpu_torch.dist.collision_gateway import \
+        TriggeredPyramidGateway
+    from gr_lora_tpu_torch.dist.gateway import (gateway_receive,
+                                                make_gateway, make_mesh)
+    from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    spec = importlib.util.spec_from_file_location("torch_multihost_worker",
+                                                  MESH_WORKER)
+    w = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(w)
+    cfg, iq, block, _, _ = w.fsm_fixture(MESH_FSM_CHANNELS)
+    plan = make_gateway(cfg, make_mesh(1, 8, devices=[dev] * 8),
+                        MESH_FSM_CHANNELS, block, max_packets=2)
+    fsm = []
+    for c, chan in enumerate(gateway_receive(plan, iq, cfg)):
+        for pos, syms in chan:
+            r = decode(syms, cfg)
+            fsm.append([c, pos, syms.tolist(),
+                        bytes(r.payload).hex() if r.ok else None])
+    pcfg = w._pyramid_cfg()
+    ch = MESH_PYR_CHANNELS
+
+    def pyramid(extra, **kw):
+        x = w.collision_rows(pcfg, ch, extra)
+        gw = PyramidGateway(pcfg, ch, block_hops=512, device=dev, **kw)
+        ri = torch.from_numpy(to_ri(x)).to(dev)
+        return w._decoded(gw.feed(ri) + gw.flush())
+
+    x = w.collision_rows(pcfg, ch, 90)
+    gated = TriggeredPyramidGateway(pcfg, ch, sfs=(8,), max_payload_len=16,
+                                    device=dev)
+    ri = torch.from_numpy(to_ri(x)).to(dev)
+    return {"fsm": fsm, "pyramid_rows": pyramid(76),
+            "pyramid_time": pyramid(74),
+            "gated": w._decoded(gated.feed(ri) + gated.flush()),
+            "device_tracker": pyramid(76, tracker="device")}
+
+
+def mesh_two_ranks(dev, card: str, fsm_packets: list) -> None:
+    """Phase 12d: the five scenarios of tests/test_multihost.py as two
+    ranks on the one card (gloo: NCCL refuses two ranks on one device),
+    FSM at 64 channels, Pyramid at 16: each rank's packets equal the
+    single-process run's split by ownership; the device tracker's copy
+    to the host under 64 KB a rank.  Which gloo collectives take CUDA
+    tensors is probed and printed.  Then a one-rank NCCL group runs 12a
+    with gather_results=True: its packets equal 12a's."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    argv = [MESH_WORKER, None, "2", str(port), "gloo", str(dev),
+            f"CHANNELS={MESH_FSM_CHANNELS}",
+            f"PYR_CHANNELS={MESH_PYR_CHANNELS}", *MESH_SCENARIOS,
+            "gloo_cuda"]
+    ranks = _run_ranks([argv[:1] + [str(r)] + argv[2:] for r in range(2)],
+                       "mesh 12d gloo")
+    ref = _mesh_references(dev)
+    by = [{r.get("scenario"): r for r in lines} for lines in ranks]
+    cpr = MESH_PYR_CHANNELS // 2
+    for name in MESH_SCENARIOS:
+        for rank in range(2):
+            r = by[rank][name]
+            if name == "fsm":
+                want = ref[name]
+            elif name == "pyramid_time":
+                want = ref[name] if rank == 0 else []
+            elif name == "gated":
+                want = [p for p in ref[name] if p[0] in set(r["own"])]
+            else:
+                want = [p for p in ref[name]
+                        if rank * cpr <= p[0] < (rank + 1) * cpr]
+            if r["packets"] != want:
+                fail(f"mesh 12d {name}: rank {rank}'s packets differ from "
+                     "the single-process run's")
+        if name == "gated" and sorted(by[0][name]["own"]
+                                      + by[1][name]["own"]) \
+                != list(range(MESH_PYR_CHANNELS)):
+            fail("mesh 12d gated: the ranks' channels do not cover every "
+                 "channel once")
+        if name == "device_tracker":
+            for rank in range(2):
+                r = by[rank][name]
+                if r["fetched_bytes"] >= 64 * 1024 \
+                        or r["stats"]["deviations"]:
+                    fail(f"mesh 12d device tracker rank {rank}: fetched "
+                         f"{r['fetched_bytes']} B, {r['stats']}")
+    secs = {name: [round(by[k][name]["wall_s"], 3) for k in range(2)]
+            for name in MESH_SCENARIOS}
+    print(f"mesh 12d two ranks over gloo on {dev} (NCCL refuses two ranks "
+          f"on one device), 4 slots a rank, on {card}: every scenario's "
+          f"packets equal the single-process run's by ownership "
+          f"(fsm {MESH_FSM_CHANNELS}ch {len(ref['fsm'])} packets, seam "
+          f"range {by[0]['fsm']['range']} | {by[1]['fsm']['range']}; "
+          f"pyramid {MESH_PYR_CHANNELS}ch); device tracker fetched_bytes="
+          f"{[by[k]['device_tracker']['fetched_bytes'] for k in range(2)]} "
+          f"(host tracker {[by[k]['pyramid_rows']['fetched_bytes'] for k in range(2)]}) "
+          f"wall_s by rank {secs}")
+    print(f"mesh 12d gloo with CUDA tensors in torch: "
+          f"{by[0]['gloo_cuda']['gloo_cuda']}")
+    nccl = _run_ranks([[__file__, "--nccl-rank", str(_free_port())]],
+                      "mesh 12d nccl")[0]
+    if nccl[-1]["packets"] != fsm_packets:
+        fail("mesh 12d: the one-rank NCCL run's packets differ from 12a's")
+    print(f"mesh 12d one-rank NCCL group ({nccl[-1]['backend']}), 12a with "
+          f"gather_results=True through all_gather_into_tensor on CUDA "
+          f"tensors, on {card}: packets equal 12a's ({len(fsm_packets)}) "
+          f"pass_s={nccl[-1]['secs']:.4f}; phase 12d "
+          f"total_s={time.perf_counter() - t0:.1f}")
+
+
+def nccl_rank(port: str) -> None:
+    """The one-rank NCCL group of phase 12d (``--nccl-rank PORT``): 12a's
+    plan with gather_results=True; prints its packets as one JSON line."""
+    import torch
+
+    from gr_lora_tpu_torch.dist import multihost
+    from gr_lora_tpu_torch.dist.gateway import gateway_receive
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        cfg = fsm_config()
+        plan, block = _mesh_fsm_plan(cfg, dev, gather=True)
+        if plan.mesh.backend != "nccl":
+            fail(f"the grid's backend is {plan.mesh.backend}")
+        iq, _ = mesh_fsm_fixture(cfg, block)
+        x = torch.from_numpy(iq).to(dev)
+        gateway_receive(plan, x, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lists = gateway_receive(plan, x, cfg)
+        secs = time.perf_counter() - t0
+        print(json.dumps({"packets": _fsm_packets(cfg, lists),
+                          "backend": plan.mesh.backend, "secs": secs}))
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def mesh_phase(iq, singles, ns_pdus: dict, ao, dev, card: str,
+               launches: dict) -> None:
+    """Phase 12 (module docstring): 12a-12d, each timed."""
+    marks = [time.perf_counter()]
+    fsm_packets = mesh_fsm(dev, card)
+    marks.append(time.perf_counter())
+    mesh_always_on(*ao, dev, card, launches)
+    marks.append(time.perf_counter())
+    mesh_north_star(iq, singles, ns_pdus, dev, card, launches)
+    marks.append(time.perf_counter())
+    mesh_two_ranks(dev, card, fsm_packets)
+    marks.append(time.perf_counter())
+    parts = np.diff(marks)
+    print(f"mesh phase 12 on {card} total_s={marks[-1] - marks[0]:.2f} (12a "
+          f"{parts[0]:.1f}, 12b {parts[1]:.1f}, 12c {parts[2]:.1f}, 12d "
+          f"{parts[3]:.1f})")
+
+
 def _peak_resources() -> None:
     """Each instance of the peak epilogue's kernels (peak_topm: float4 or
     f32 rows x lists of 8, 16, 16 with the rescan; the merge: lists of 8
@@ -3080,6 +3563,9 @@ META = {
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--nccl-rank"]:       # phase 12d's child
+        nccl_rank(sys.argv[2])
+        return
     # Phase 1: device.
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: a CUDA device is needed")
@@ -3186,6 +3672,12 @@ def main() -> None:
                       report, launches)
         torch.cuda.empty_cache()
 
+    # Phase 12: the shard grid (dist/mesh) on the card, then two ranks on
+    # it (K1, K2, K4, K5 and the walk on the grid).
+    mesh_phase(iq, singles, ns_pdus, (ao_cfg, ao_iq, ao_host), dev, card,
+               launches)
+    torch.cuda.empty_cache()
+
     # The port's kernels that stand for no TPU kernel: the dense top-M
     # (launched by the dense backends' epilogue, counted as their front's
     # launch above) and the merge that ends every K1 and K2 launch.
@@ -3195,14 +3687,14 @@ def main() -> None:
           f"bound {topm['bound_ms_m32']:.6f}) "
           f"plain_ms={topm['plain_ms']:.4f} "
           f"library_ms={topm['library_ms']:.4f} "
-          f"launches={peak_epilogue.topm_launches} (phases 4-11)")
+          f"launches={peak_epilogue.topm_launches} (phases 4-12)")
     print("port-only merge (csrc/peak_topm.cu peak_merge_kernel): "
           + "; ".join(f"after {r['after']} {r['shape']} ms={r['ms']:.4f} "
                       f"bound_ms={r['bound_ms']:.6f} "
                       f"plain_ms={r['plain_ms']:.4f} "
                       f"library_ms={r['library_ms']:.4f}" for r in merge)
           + f"; launches={launches['rdft_peaks'] + launches['overlap_peaks']}"
-          " (one a K1 or K2 launch, phases 4-11)")
+          " (one a K1 or K2 launch, phases 4-12)")
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "gr_lora_tpu"))
     if foreign:

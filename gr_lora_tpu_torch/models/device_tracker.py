@@ -65,18 +65,32 @@ def init_state(cfg: LoraConfig, channels: int, max_peaks: int = 16,
     return walk.init_state(channels, resolve_device(device))
 
 
-def state_from_jax(np_state: dict, device=DEFAULT_DEVICE) -> dict:
+def state_from_jax(np_state: dict, device=DEFAULT_DEVICE,
+                   mesh=None) -> dict:
     """The JAX package's tracker state (a dict of numpy arrays, one
     tracker's or batched over channels) as the port's, with a leading
-    channel axis, on ``device``."""
+    channel axis, on ``device``.  With ``mesh`` (a ``dist/mesh.
+    ShardGrid``) the state is a whole batch fetched from the JAX mesh
+    plan, and each channel row this rank tracks is placed on its slots'
+    device (``make_channel_tracker_plan(mesh=...)``'s states)."""
     batched = np.asarray(np_state["t_active"]).ndim == 2
-    dev = resolve_device(device)
+    rows = slice(None)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        chans = np.asarray(np_state["t_active"]).shape[0]
+        cpr = chans // mesh.shape["ch"]
+        rows = np.concatenate([np.arange(c * cpr, (c + 1) * cpr)
+                               for c in mesh.row_layout().rows]
+                              + [np.zeros(0, np.int64)])
     out = {}
     for name, dt in STATE_FIELDS:
         a = np.asarray(np_state[name])
         if not batched:
             a = a[None]
-        out[name] = torch.from_numpy(np.array(a)).to(device=dev, dtype=dt)
+        out[name] = torch.from_numpy(np.array(a[rows])).to(device=dev,
+                                                           dtype=dt)
     return out
 
 
@@ -148,23 +162,56 @@ def make_channel_tracker_plan(cfg: LoraConfig, block_hops: int,
       the finished packets as host arrays sliced to the live region, the
       output counts zeroed — called when ``o_count`` says there is
       something to fetch.
+
+    With ``mesh`` (a ``dist/mesh.ShardGrid``; ``device`` is then the
+    grid's) the block is the rank's feed (``ShardGrid.row_layout``: its
+    own rows, or every channel where a row spans ranks), its time split
+    over ``t`` with the right halo from the ``t`` neighbour and the tail on
+    the last slot, a rank's slots one lattice call; each row's lattice is
+    gathered along ``t`` and walked once, on the rank that holds the row's
+    first ``t`` slot (the JAX package walks it replicated on every ``t``
+    shard).  ``init(channels)`` and the states are that rank's rows' only,
+    placed by row on its device, and ``step`` returns their counts.  A pop
+    moves no data between ranks, so no pop decision gates a collective
+    and the counts need no gather over ``ch``; every rank runs ``step``
+    on every block, rows or none, so each joins every gather.
     """
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported "
-                                  "(ROADMAP Queue 1, item 10)")
     from .pyramid import peak_lattice_fn
 
-    dev = resolve_device(device)
     walk = make_device_tracker(cfg, max_peaks, grace, **pools)
-    lat = peak_lattice_fn(cfg, block_hops, max_peaks, backend,
-                          block_hops=lattice_block_hops).to(dev)
+    if mesh is None:
+        dev = resolve_device(device)
+        run = lat = peak_lattice_fn(cfg, block_hops, max_peaks, backend,
+                                    block_hops=lattice_block_hops).to(dev)
+    else:
+        if not callable(getattr(mesh, "lattice", None)):
+            raise TypeError(f"mesh must be a ShardGrid, not "
+                            f"{type(mesh).__name__}")
+        nt = mesh.shape["t"]
+        if block_hops % nt:
+            raise ValueError(f"block_hops {block_hops} % t-shards {nt} != 0")
+        dev = mesh.device
+        lat = peak_lattice_fn(cfg, block_hops // nt, max_peaks, backend,
+                              block_hops=lattice_block_hops).to(dev)
+        n = cfg.num_samples
+        hop = n // _OV
+        grid_lat = mesh.lattice(_Words(lat), block_hops * hop, n - hop)
+        rows = len(mesh.row_layout().rows)
+
+        def run(iq):
+            return _from_words(grid_lat(iq))
 
     def init(channels: int) -> dict:
+        if mesh is not None:
+            if channels % mesh.shape["ch"]:
+                raise ValueError(f"channels {channels} % ch-shards "
+                                 f"{mesh.shape['ch']} != 0")
+            channels = rows * (channels // mesh.shape["ch"])
         return walk.init_state(channels, dev)
 
     @torch.no_grad()
     def step(states: dict, iq: torch.Tensor):
-        walk.process(states, *(x.contiguous() for x in lat(iq)))
+        walk.process(states, *(x.contiguous() for x in run(iq)))
         return states, states["o_count"]
 
     def pop(states: dict):
@@ -172,6 +219,26 @@ def make_channel_tracker_plan(cfg: LoraConfig, block_hops: int,
 
     step.lattice = lat
     return init, step, pop
+
+
+class _Words(torch.nn.Module):
+    """A lattice's (bins, h, hs, valid) as one int32 [..., M, 4] tensor,
+    so a grid moves it in one gather."""
+
+    def __init__(self, lattice: torch.nn.Module):
+        super().__init__()
+        self.lattice = lattice
+
+    def forward(self, iq: torch.Tensor) -> torch.Tensor:
+        bins, h, hs, valid = self.lattice(iq)
+        return torch.stack([bins.to(torch.int32), h.view(torch.int32),
+                            hs.view(torch.int32), valid.to(torch.int32)],
+                           dim=-1)
+
+
+def _from_words(w: torch.Tensor):
+    return (w[..., 0], w[..., 1].view(torch.float32),
+            w[..., 2].view(torch.float32), w[..., 3].bool())
 
 
 class DevicePyramidTracker:

@@ -11,6 +11,13 @@ if a feed outsizes it.
 
 Coordinates are the caller's absolute sample indices minus the span start
 (the gateway's ``_base`` bookkeeping maps 1:1).
+
+The JAX ring takes a ``sharding`` (its buffer split over a mesh's ``ch``
+axis) because one controller holds every channel as one global array.
+Here each rank of a shard grid is its own process with its own ring, and
+the gated gateway (dist/collision_gateway.py) gives it only the channels
+of the rows that rank holds: a rank's ring holds only its own rows, so
+it needs no sharding of its own.
 """
 
 from __future__ import annotations

@@ -106,14 +106,15 @@ def test_cotimed_channels_not_suppressed():
                                 dict(mesh=object()),
                                 dict(use_native=False)])
 def test_unported_options_raise(kw):
-    """mesh= raises, citing its ROADMAP item; sic=True, use_native=False
-    and tracker="device" (ported since) build a gateway."""
+    """sic=True, use_native=False and tracker="device" (ported since)
+    build a gateway; mesh= (ported since) takes a dist/mesh.ShardGrid and
+    raises for anything else."""
     if "sic" in kw or "use_native" in kw or "tracker" in kw:
         gw = TriggeredPyramidGateway(BASE, 1, sfs=(8,), device="cpu", **kw)
         assert gw.stats()["sic_windows"] == 0 and gw.wall["sic"] == 0.0
         assert gw.stats()["device_deviations"] == 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(TypeError, match="ShardGrid"):
         TriggeredPyramidGateway(BASE, 1, sfs=(8,), device="cpu", **kw)
 
 

@@ -119,7 +119,9 @@ def test_gated_gateway_device_mode_with_sic_matches_jax():
 
 
 def test_device_mode_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """mesh= (ported since) takes a dist/mesh.ShardGrid and raises for
+    anything else; an unknown tracker raises."""
+    with pytest.raises(TypeError, match="ShardGrid"):
         PyramidGateway(port_config(JT._GCFG), 2, tracker="device",
                        mesh=object(), **CPU)
     with pytest.raises(ValueError):

@@ -374,13 +374,14 @@ def test_flush_hops(grace):
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """The tracker's entry points run on the card unless told otherwise;
-    a mesh raises (item 10)."""
+    mesh= (ported since) takes a dist/mesh.ShardGrid and raises for
+    anything else."""
     import inspect
 
     for fn in (dt.DevicePyramidTracker.__init__, dt.init_state,
                dt.state_from_jax, dt.make_channel_tracker_plan):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="ShardGrid"):
         dt.make_channel_tracker_plan(port_config(CFG), 64, mesh=object(),
                                      device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

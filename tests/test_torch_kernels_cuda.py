@@ -1013,3 +1013,72 @@ def test_gateway_device_tracker_on_card_equals_cpu(dev):
                 if p.result.ok and p.result.crc_ok}
         assert {(c, x) for c in range(3) for x in (PDU1, PDU2)} <= pdus
     assert runs[0] == runs[1]
+
+
+def test_fsm_gateway_grid_on_card_equals_mesh_none(dev):
+    """The FSM gateway (dist/gateway) on a {ch: 2, t: 4} grid of slots on
+    the card equals demod_fn over the whole stream (mesh=None): every
+    packet once, at the same global position (blocks of whole symbols,
+    one packet a channel, so the FSM's symbol grid is the stream's when
+    it meets it), three channels' across a t seam."""
+    from gr_lora_tpu_torch.dist.gateway import (gateway_receive,
+                                                make_gateway, make_mesh,
+                                                right_halo_len)
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+
+    cfg = LoraConfig(sf=7, cr=2, crc=True, ldr=False, explicit_header=False,
+                     payload_len=4, p=2, fft_factor=2)
+    n = cfg.num_samples
+    pkt = to_ri(modulate(encode(bytes([0xDE, 0xAD, 0xBE, 0xEF]), cfg), cfg,
+                         pad_front=0, pad_back=0))
+    block = -(-right_halo_len(cfg) // n) * n
+    iq = np.zeros((4, 4 * block, 2), np.float32)
+    for c in range(4):
+        off = (c + 1) * block - len(pkt) // 2 + 37 * c if c < 3 \
+            else 2 * block + block // 3
+        iq[c, off:off + len(pkt)] = pkt
+    grid = make_mesh(2, 4, devices=[dev] * 8)
+    got = gateway_receive(make_gateway(cfg, grid, 4, block, max_packets=4),
+                          iq, cfg)
+    syms, lens, pos, cnt, _, _ = (a.cpu().numpy() for a in demod_fn(
+        cfg, iq.shape[1], 8, device=dev)(torch.from_numpy(iq).to(dev)))
+    ref = [[(int(pos[c, r]), syms[c, r, :lens[c, r]].tolist())
+            for r in range(int(cnt[c]))] for c in range(4)]
+    assert [[(p, s.tolist()) for p, s in ch] for ch in got] == ref
+    assert all(len(ch) == 1 for ch in ref)
+
+
+def test_always_on_grid_on_card_equals_mesh_none(dev):
+    """PyramidGateway at fastp (K5) on a {ch: 2, t: 4} grid on the card
+    equals mesh=None on the card: the same packets, both golden PDUs on
+    every channel, K5 launched once a slot batch."""
+    from gr_lora_tpu_torch.dist.gateway import make_mesh
+    from gr_lora_tpu_torch.dist.pyramid_gateway import PyramidGateway
+
+    cfg = _cfg(8).replace(payload_len=8)
+    n = cfg.num_samples
+    p1 = 0.2 * modulate(encode(bytes([1, 2, 3, 4, 5, 6]), cfg), cfg,
+                        pad_front=0, pad_back=0)
+    p2 = 0.09 * modulate(encode(bytes([7] * 5), cfg), cfg, pad_front=0,
+                         pad_back=0)
+    total = 1000 + 4 * 4 * n + 76 * n
+    iq = np.zeros((4, total), np.complex64)
+    for c in range(4):
+        base = 1000 + c * 4 * n
+        o2 = base + 16 * n + 4 * n // 8 + 204
+        iq[c, base:base + len(p1)] += p1
+        iq[c, o2:o2 + len(p2)] += p2
+    runs = []
+    for mesh in (None, make_mesh(2, 4, devices=[dev] * 8)):
+        gw = PyramidGateway(cfg, 4, block_hops=512, max_peaks=8,
+                            backend="fastp", mesh=mesh, device=dev)
+        mods = [m for m in gw.lattice.modules()
+                if type(m) is OverlapSpectra]
+        pkts = gw.feed(to_ri(iq)) + gw.flush()
+        assert mods and sum(m.launches for m in mods) > 0
+        runs.append(sorted((p.channel, p.position, p.symbols.tolist())
+                           for p in pkts))
+        pdus = {(p.channel, bytes(p.result.payload).hex()) for p in pkts
+                if p.result.ok and p.result.crc_ok}
+        assert {(c, x) for c in range(4) for x in (PDU1, PDU2)} <= pdus
+    assert runs[0] == runs[1]

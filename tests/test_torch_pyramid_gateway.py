@@ -105,9 +105,10 @@ def test_gateway_complex_input_stats_and_bytes(matrix):
                                 dict(tracker="device"),
                                 dict(use_native=False)])
 def test_gateway_options_not_ported(kw):
-    """mesh= raises, citing its ROADMAP item; use_native=False builds the
-    Python tracker bank; tracker="device" (ported since) the device
-    tracker, its deviation counters at zero."""
+    """mesh= (ported since) takes a dist/mesh.ShardGrid and raises for
+    anything else; use_native=False builds the Python tracker bank;
+    tracker="device" (ported since) the device tracker, its deviation
+    counters at zero."""
     if "use_native" in kw:
         gw = PyramidGateway(CFG, 2, **CPU, **kw)
         assert gw.stats() == {"tracks_dropped": 0, "packets_dropped": 0,
@@ -117,7 +118,7 @@ def test_gateway_options_not_ported(kw):
         gw = PyramidGateway(CFG, 2, **CPU, **kw)
         assert gw.trackers is None and gw.stats()["deviations"] == 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(TypeError, match="ShardGrid"):
         PyramidGateway(CFG, 2, **CPU, **kw)
 
 

@@ -196,6 +196,24 @@ with tempfile.TemporaryDirectory() as d:
     assert gateway.main([path, "--samp-rate", "500e3", "--channels", "4",
                          "--sfs", "7", "--fft-factor", "4", "--quiet"],
                         device="cpu") == 0
+from gr_lora_tpu_torch.dist import (gateway_receive, make_gateway,
+                                    make_mesh, multihost, right_halo_len)
+gw = PyramidGateway(cfg, 1, block_hops=256, device="cpu",
+                    mesh=make_mesh(1, 2, devices=["cpu"] * 2))
+pkts = gw.feed(to_ri(iq)[None]) + gw.flush()
+assert {bytes(p.result.payload).hex() for p in pkts} >= golden
+fc = cfg.replace(sf=7, fft_factor=2, explicit_header=False, payload_len=4)
+blk = right_halo_len(fc)
+pkt = to_ri(modulate(encode(bytes([9, 8, 7, 6]), fc), fc))
+fiq = np.zeros((1, 2 * blk, 2), np.float32)
+fiq[0, blk - len(pkt) // 2:blk - len(pkt) // 2 + len(pkt)] = pkt
+plan = make_gateway(fc, make_mesh(1, 2, devices=[(0, "cpu")] * 2), 1, blk,
+                    max_packets=2, gather_results=True)
+lo, hi = multihost.time_range_of_process(plan, 2 * blk)
+out, stats = multihost.multihost_gateway_receive(
+    plan, multihost.process_local_input(plan, fiq[:, lo:hi], 2 * blk), fc)
+assert [bytes(decode(s, fc).payload[:4]) for _, s in out[0]] == \
+    [bytes([9, 8, 7, 6])] and stats["dropped"] == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gr_lora_tpu"))
 assert not bad, bad
@@ -207,8 +225,11 @@ def test_port_imports_no_jax():
     """Every port module imported, a CPU decode, a CPU gateway feed, a
     CPU SIC run (models.sic), the FSM receive path (the loopback, the
     weak demodulator, entry()), a CPU channelize and one gateway.main
-    over a wideband capture, in a fresh interpreter: neither jax nor any
-    module of the JAX package is loaded."""
+    over a wideband capture, then the shard grid (dist/mesh): the
+    always-on gateway on a {1, 2} grid and the FSM gateway through
+    dist/gateway and dist/multihost's one-rank path, in a fresh
+    interpreter: neither jax nor any module of the JAX package is
+    loaded."""
     res = subprocess.run([sys.executable, "-c", _PORT_RUN],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
