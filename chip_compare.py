@@ -17,7 +17,7 @@ merge that ends K1 at SF8 and K2 at SF10 (device time from
 torch.profiler, chip_smoke._merge_ms); then, on chip_smoke.py's
 always-on block (16 channels x 2048 hops at SF8 x ff 8), K5 on the
 block's chunk spectra (first, before the others allocate), K3 (and
-peak_topm at M 8 and M 32 on K3's folds), K4b and K6; then P1 at the
+peak_topm at M 8 and M 32 on K3's folds), K4b, K6 and K4 (M 8); then P1 at the
 main dot shape, and P2's three kinds (``mxu``, ``vpu``, ``both``, 64
 steps x 2 rounds) at the same shape; then the tracker walk
 (``TrackerWalk.kernel``, 10 calls on the first block, the state carried
@@ -65,7 +65,7 @@ def one(tree: str) -> dict:
     from gr_lora_tpu_torch.dist.collision_gateway import \
         TriggeredPyramidGateway
     from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
-    from gr_lora_tpu_torch.ops.direct import DirectSpectra
+    from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
     from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
     from gr_lora_tpu_torch.ops.peak_epilogue import launch_topm
     from gr_lora_tpu_torch.ops.probes import (MAIN_SHAPE, OverlapProbe,
@@ -158,6 +158,11 @@ def one(tree: str) -> dict:
                 del sp
             del mod
             torch.cuda.empty_cache()
+        mod = DirectPeaks(cfg, hops, 8).to(dev)
+        ms[f"K4 SF8 [16, {hops}] M 8"] = smoke._time_ms(
+            lambda: mod.kernel(x8), ITERS)
+        del mod
+        torch.cuda.empty_cache()
         x, w, v0 = (t.to(dev) for t in probe_inputs(*MAIN_SHAPE))
         p1 = RateProbe()
         ms[f"P1 {list(MAIN_SHAPE)}"] = smoke._time_ms(lambda: p1(x, w),

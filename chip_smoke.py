@@ -29,7 +29,15 @@ the final ``ok`` line):
    at SF7 x fft_factor 16 (both timed), every kernel backend's lattice at
    M = 32 (above the fused searches' 16: the dense route), K3,
    K1 and K6 at SF7 p 1 (hop 16 samples) and K3 and K1 on a ragged frame
-   count.  Tolerances: K1, K3, K4b, K6 and K4 sum bf16 products in
+   count; K4b and K4 at SF6 x p 2 x fft_factor 8 (hop 16 samples: their
+   chunk walk) on 16 lanes x 2048 hops, timed beside their plain versions
+   and bounds; (3b) the configuration envelope: each kernel backend
+   (rdft K3, direct K4b, fused_direct K4, fastp K5, pallas K6, fused K1 /
+   K2 by the JAX dispatch) over SF 6-8 x p {2, 8} x fft_factor {1, 8}, the
+   direct pair also at p 1 (hops 8 and 16), on 2 lanes of 64 hops of
+   seeded noise and one chirp, each launched once through its wrapper and
+   held against its plain version, one line a backend with the shapes it
+   served.  Tolerances: K1, K3, K4b, K6 and K4 sum bf16 products in
    another order than their plain versions — the same peaks up to f32
    ties, heights within rtol 1e-3, and the dense K3 / K4b / K6 spectra
    within 1e-4 of the largest value; K2 and K5 round as their plain
@@ -38,9 +46,10 @@ the final ``ok`` line):
    version and torch.topk on the same candidates (their plain models');
 4. main    — the north-star gateway: 64 channels x SF7-12
    detection-gated Pyramid collision decoding (TriggeredPyramidGateway,
-   backend "fused": K1 and K2) fed the golden SF8 collision on every
-   channel plus one single per channel, twice, then flushed (K1's
-   launches printed per SF);
+   backend "fused": K1 and K2), warmed up (``warmup()``: its wall, which
+   must leave the wall split at zero), then fed the golden SF8 collision
+   on every channel plus one single per channel, twice, then flushed
+   (both feeds' walls and wall splits, K1's launches per SF);
 5. always-on — the always-on gateway (PyramidGateway) at the
    rx_file_collision.grc point, 16 channels, 2048-hop blocks, once per
    kernel backend ("rdft": K3, "direct": K4b, "fused_direct": K4,
@@ -586,9 +595,11 @@ def _fused_alloc(name: str, call, lanes: int, hops: int, k: int):
 
 
 def main_path(gw, iq_dev, singles, card: str, label: str = "main"):
-    """Phase 4: feed the fixture twice, flush, check the decodes.  Returns
-    (launches, the decoded {channel: {(sf, payload)}}, packet count, the
-    second feed's wall split).  Phase 12c runs it on a grid."""
+    """Phase 4: warm the gateway up (``warmup()``: every scan and lattice
+    bucket built and run on zeros), then feed the fixture twice, flush,
+    check the decodes.  Returns (launches, the decoded {channel: {(sf,
+    payload)}}, packet count, the second feed's wall split).  Phase 12c
+    runs it on a grid."""
     import torch
 
     from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
@@ -604,6 +615,11 @@ def main_path(gw, iq_dev, singles, card: str, label: str = "main"):
                 k1_by_sf.setdefault(sf, []).append(m)
             elif isinstance(m, OverlapPeaks):
                 mods["overlap_peaks"].append(m)
+    t0 = time.perf_counter()
+    gw.warmup()
+    warmup_s = time.perf_counter() - t0
+    if any(gw.wall.values()):
+        fail(f"warmup() moved the wall split: {gw.wall}")
     for ms in mods.values():
         for m in ms:
             m.launches = 0
@@ -645,7 +661,9 @@ def main_path(gw, iq_dev, singles, card: str, label: str = "main"):
     print(f"{label} north-star {channels}ch x SF7-12 T={t} x2 feeds + flush "
           f"on {card}: packets={npk} (feed1={len(feeds[0])} "
           f"feed2={len(feeds[1])} flush={len(tail)}) "
+          f"warmup_s={warmup_s:.4f} "
           f"feed_s=[{secs[0]:.4f}, {secs[1]:.4f}] flush_s={flush_s:.4f} "
+          f"feed1_wall[{_wall_txt(walls[0])}] "
           f"feed2_wall[ingest={w['ingest']:.4f} scan={w['scan']:.4f} "
           f"lattice={w['lattice']:.4f} tracker={w['tracker']:.4f} "
           f"decode={w['decode']:.4f}] feed2_samples_per_s={sps:.1f} "
@@ -786,6 +804,71 @@ def parity_dense(cfg8, x8, cfg12, x12, report: dict,
             _unfused_floor_ms(ops)
         del mod, g
         torch.cuda.empty_cache()
+
+
+def parity_hop16(cfg8, dev, report: dict) -> None:
+    """Phase 3, K4b and K4 on their chunk walk: SF6 x p 2 x fft_factor 8
+    (hop 16 samples), 16 lanes x 2048 hops of seeded noise and one chirp
+    a lane, against their plain versions (K4b's dense spectra within 1e-4
+    of the largest value, both the plain peaks up to f32 ties), timed
+    beside the plain versions and their tensor-core bound.  The rows go
+    before the SF8 ones, which stay each kernel's main-path row."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
+    from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
+
+    cfg = cfg8.replace(sf=6, explicit_header=False, payload_len=4)
+    lanes, hops = AO_CHANNELS, AO_BLOCK_HOPS
+    x = _chirp_lanes(cfg, lanes, hops, 6, dev)
+    thr = float(cfg.threshold)
+    n, k = cfg.num_samples, cfg.bin_size
+    tag = f"SF6 p{cfg.p} ff{cfg.fft_factor} (hop {n // 8})"
+    ops = lanes * hops * 32 * n * k
+    mod = DirectSpectra(cfg, hops).to(dev)
+    if mod.plane_walk:
+        fail(f"{tag}: K4b took the plane walk")
+    kern, plain = mod.kernel(x), mod.plain(x)
+    torch.cuda.synchronize()
+    err = _dense_check(f"direct_spectra {tag}", kern, plain, 1e-4)
+    _, ties = _compare(peaks_plain(*kern, thr, 8), peaks_plain(*plain, thr, 8),
+                       plain[1], 1e-3, thr)
+    del kern, plain
+    ms = _time_ms(lambda: mod.kernel(x), 5)
+    plain_ms = _time_ms(lambda: mod.plain(x), 3)
+    shape = f"{tag} [{lanes}, {x.shape[1]}, 2] -> [{lanes}, {hops}, {k}]"
+    bound = _bound(_nbytes(x, mod.w) + 3 * 4 * lanes * hops * k, ops)
+    a, w = _product_operands(mod, x)
+    cublas = _time_ms(lambda: torch.matmul(a, w), 5)
+    del a, w
+    print(f"parity K4b direct_spectra {shape}: max_abs_err={err:.6g} "
+          f"tie_peaks={ties} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound[0]:.4f} cublas_product_ms={cublas:.4f}")
+    row = _row(err, ms, plain_ms, shape, bound)
+    row["cublas_product_ms"] = cublas
+    report["direct_spectra"].insert(0, row)
+
+    mod = DirectPeaks(cfg, hops, 8).to(dev)
+    kern, alloc = _fused_alloc("direct_peaks", lambda: mod(x), lanes, hops,
+                               k)
+    plain = mod.plain(x)
+    faw = mod.front.plain(x)[1]
+    torch.cuda.synchronize()
+    if not bool(plain[3].any()):
+        fail(f"direct_peaks {tag}: no peak in the plain lattice")
+    err, ties = _compare(kern, plain, faw, 1e-3, thr)
+    del kern, plain, faw
+    ms = _time_ms(lambda: mod(x), 5)
+    plain_ms = _time_ms(lambda: mod.plain(x), 3)
+    shape = f"{tag} [{lanes}, {x.shape[1]}, 2] -> [{lanes}, {hops}, 8]"
+    bound = _bound(_nbytes(x, mod.front.w) + _peak_bytes(lanes, hops, 8),
+                   ops)
+    print(f"parity K4 direct_peaks {shape}: max_abs_err={err:.6g} "
+          f"tie_peaks={ties} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound[0]:.4f} alloc_bytes={alloc}")
+    report["direct_peaks"].insert(0, _row(err, ms, plain_ms, shape, bound))
+    del mod, x
+    torch.cuda.empty_cache()
 
 
 def _time_topm(spectra, threshold: float, port_only: dict) -> None:
@@ -970,6 +1053,123 @@ def parity_extra(cfg8, dev) -> None:
           f"{nh} hops] from T={x.shape[1]}: max_abs_err={err:.6g} "
           f"tie_peaks={ties}")
     torch.cuda.empty_cache()
+
+
+#: Phase 3b: each kernel backend over SF 6-8 x p {2, 8} x fft_factor
+#: {1, 8}; the direct pair also at p 1 (hop 8 at SF6, 16 at SF7).
+ENVELOPE_BACKENDS = ("rdft", "direct", "fused_direct", "fastp", "pallas",
+                     "fused")
+ENVELOPE_GRID = [(sf, p, ff) for sf in (6, 7, 8) for p in (2, 8)
+                 for ff in (1, 8)]
+ENVELOPE_P1 = [(sf, 1, ff) for sf in (6, 7) for ff in (1, 8)]
+ENVELOPE_HOPS = 64
+
+
+def _chirp_lanes(cfg, lanes: int, hops: int, seed: int, dev):
+    """[lanes, T, 2] on the card, T the samples of ``hops`` hop frames:
+    noise 0.01 from default_rng(seed) and one upchirp (amplitude 0.2) a
+    lane at a lane-specific offset."""
+    import torch
+
+    from gr_lora_tpu_torch.ops.chirp import chirp_tables
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    n = cfg.num_samples
+    hop = n // 8
+    total = (hops - 1) * hop + n
+    rng = np.random.default_rng(seed)
+    iq = (0.01 * (rng.standard_normal((lanes, total))
+                  + 1j * rng.standard_normal((lanes, total)))
+          ).astype(np.complex64)
+    up, _ = chirp_tables(cfg.sf, cfg.p)
+    for i in range(lanes):
+        o = (3 * hop + 5 * i) % (total - n)
+        iq[i, o:o + n] += 0.2 * up
+    return torch.from_numpy(to_ri(iq)).to(dev)
+
+
+def _envelope_case(backend: str, cfg, x, nh: int):
+    """One backend's kernel against its plain version on ``x``, called
+    through the wrapper's counted entry (``forward`` / ``from_chunks``):
+    (the kernel that ran, max |delta|), failing unless it launched once.
+    K3 / K4b / K6 dense within 1e-4 of the largest value and their peaks
+    up to f32 ties; K1 / K4 the plain peaks up to f32 ties (heights rtol
+    1e-3); K2 / K5 bit for bit."""
+    from gr_lora_tpu_torch.models.pyramid import peak_lattice_fn
+    from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
+    from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
+    from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
+    from gr_lora_tpu_torch.ops.overlap_spectra import OverlapSpectra
+    from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
+    from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
+    from gr_lora_tpu_torch.ops.rdft_spectra import RdftSpectra
+
+    thr = float(cfg.threshold)
+    what = f"envelope {backend} SF{cfg.sf} p{cfg.p} ff{cfg.fft_factor}"
+    dense = {"rdft": ("K3", RdftSpectra), "direct": ("K4b", DirectSpectra),
+             "pallas": ("K6", ChunkSpectra), "fastp": ("K5", OverlapSpectra)}
+    if backend in dense:
+        tag, cls = dense[backend]
+        mod = cls(cfg, nh).to(x.device)
+        if tag == "K5":
+            g = mod.plan.chunk_dft(x, nh)
+            kern, plain = mod.from_chunks(g), mod.plain_from_chunks(g)
+            err = _dense_check(f"{what} K5", kern, plain, 0.0)
+        else:
+            kern, plain = mod(x), mod.plain(x)
+            err = _dense_check(f"{what} {tag}", kern, plain, 1e-4)
+            ref = peaks_plain(*plain, thr, 8)
+            if not bool(ref[3].any()):
+                fail(f"{what}: no peak in the plain spectra")
+            _compare(peaks_plain(*kern, thr, 8), ref, plain[1], 1e-3, thr)
+    else:
+        mod = DirectPeaks(cfg, nh, 8) if backend == "fused_direct" \
+            else peak_lattice_fn(cfg, nh, 8, backend)
+        mod = mod.to(x.device)
+        if isinstance(mod, OverlapPeaks):
+            g = mod.plan.chunk_dft(x, nh)
+            kern, plain = mod.from_chunks(g), mod.plain_from_chunks(g)
+            tag, faw, rtol = "K2", None, 0.0
+        else:
+            tag = {RdftPeaks: "K1", DirectPeaks: "K4"}.get(type(mod))
+            if tag is None:
+                fail(f"{what}: the dispatch chose {type(mod).__name__}")
+            kern, plain = mod(x), mod.plain(x)
+            faw, rtol = mod.front.plain(x)[1], 1e-3
+        if not bool(plain[3].any()):
+            fail(f"{what}: no peak in the plain lattice")
+        err, _ = _compare(kern, plain, faw, rtol, thr)
+    if mod.launches != 1:
+        fail(f"{what}: {tag} launched {mod.launches} times, not once")
+    return tag, err
+
+
+def envelope(cfg8, dev, card: str) -> None:
+    """Phase 3b: every kernel backend over the configuration envelope (SF
+    6-8 x p {2, 8} x fft_factor {1, 8}, the direct pair also at p 1), 2
+    lanes of 64 hops of seeded noise and one chirp, each kernel against
+    its plain version; one line a backend with the shapes it served."""
+    import torch
+
+    t0 = time.perf_counter()
+    for backend in ENVELOPE_BACKENDS:
+        grid = ENVELOPE_GRID + (ENVELOPE_P1 if backend in (
+            "direct", "fused_direct") else [])
+        served, worst = [], 0.0
+        for i, (sf, p, ff) in enumerate(grid):
+            cfg = cfg8.replace(sf=sf, p=p, fft_factor=ff,
+                               explicit_header=sf > 6, payload_len=4)
+            x = _chirp_lanes(cfg, 2, ENVELOPE_HOPS, 100 + i, dev)
+            tag, err = _envelope_case(backend, cfg, x, ENVELOPE_HOPS)
+            worst = max(worst, err)
+            served.append(f"SF{sf}xp{p}xff{ff}(hop {cfg.num_samples // 8},"
+                          f" K {cfg.bin_size}):{tag}")
+        torch.cuda.synchronize()
+        print(f"envelope {backend} on {card}: {len(served)} shapes, one "
+              f"kernel launch each, equal to the plain version, "
+              f"max_abs_err={worst:.6g}: " + " ".join(served))
+    torch.cuda.empty_cache()
+    print(f"envelope phase 3b total_s={time.perf_counter() - t0:.2f}")
 
 
 def _kernel_modules(module, name: str) -> list:
@@ -1344,13 +1544,14 @@ def sic_envelope(cfg, dev, card: str, launches: dict) -> None:
     passes run K1 (SF8).  SIC must recover both packets, and the strong
     one, at all 66 points at either backend."""
     from gr_lora_tpu_torch.models import sic
-    from gr_lora_tpu_torch.models.pyramid import (num_hops_for,
+    from gr_lora_tpu_torch.models.pyramid import (make_peak_lattice,
+                                                  num_hops_for,
                                                   pyramid_demodulate)
     from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
 
     points, p1, p2, total = envelope_grid(cfg)
-    k1 = [m for m in sic.lattice(cfg, num_hops_for(cfg, total), 16, "fused",
-                                 None, dev).modules()
+    k1 = [m for m in make_peak_lattice(cfg, num_hops_for(cfg, total), 16,
+                                       "fused", dev).modules()
           if isinstance(m, RdftPeaks)]
     tiers = {
         "grace0": lambda iq: pyramid_demodulate(iq, cfg, grace=0,
@@ -1429,7 +1630,7 @@ def sic_north_star(iq, singles, ns_pdus: dict, ns_packets: int, dev,
 
     from gr_lora_tpu_torch.dist.collision_gateway import \
         TriggeredPyramidGateway
-    from gr_lora_tpu_torch.models import sic
+    from gr_lora_tpu_torch.models.pyramid import make_peak_lattice
     from gr_lora_tpu_torch.ops.overlap_peaks import OverlapPeaks
     from gr_lora_tpu_torch.ops.rdft_peaks import RdftPeaks
 
@@ -1443,9 +1644,10 @@ def sic_north_star(iq, singles, ns_pdus: dict, ns_packets: int, dev,
                        if isinstance(m, cls)] for name, cls in kinds.items()}
 
     own = kernels([gw.lattice(sf) for sf in SFS])
-    in_sic = kernels([sic.lattice(st.cfg, st.win_hops, gw.max_peaks,
-                                  gw.backend, gw._lattice_block_hops(st), dev)
-                      for st in gw.sf_states.values()])
+    in_sic = kernels([make_peak_lattice(
+        st.cfg, st.win_hops, gw.max_peaks, gw.backend, dev,
+        block_hops=gw._lattice_block_hops(st))
+        for st in gw.sf_states.values()])
     for ms in (*own.values(), *in_sic.values()):
         for m in ms:
             m.launches = 0
@@ -3626,7 +3828,9 @@ def main() -> None:
         parity(gw, iq_dev, singles, report, port_only)
         parity_dense(ao_cfg, torch.from_numpy(ao_iq[:, :block]).to(dev),
                      cfg12, x12, report, port_only)
+        parity_hop16(ao_cfg, dev, report)
         parity_extra(ao_cfg, dev)
+        envelope(ao_cfg, dev, card)
     del x12
     torch.cuda.empty_cache()
 

@@ -18,4 +18,16 @@ the gateways, ``DeviceRing``) run on the card unless the caller passes
 
 from .config import LoraConfig, PeakSearch
 
-__all__ = ["LoraConfig", "PeakSearch"]
+__version__ = "0.2.0"
+__all__ = ["LoraConfig", "PeakSearch", "blocks", "blocks_meta", "__version__"]
+
+_LAZY = ("blocks", "blocks_meta", "native")
+
+
+def __getattr__(name):
+    # Lazy, as in the JAX package: the block-style API pulls in model
+    # modules, and ``native`` its host library's bindings, on first touch.
+    if name in _LAZY:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(name)

@@ -38,15 +38,18 @@
 // x 32 depths (64 bytes, 64-byte swizzle) from a bf16 copy of the samples
 // that a pre-pass writes once; the A walk maps a depth to its box:
 //
-//   K4b (PlaneWalk): two planes (re, im) [rows, hop] a lane, rows = frames
-//     + n / hop - 1: frame f at depth d < n of either half is plane row
-//     f + d / hop, column d % hop (hop a multiple of 32 samples, so a box
-//     never crosses a plane row);
-//   K6 (ChunkWalk): the chunk rows [rows, w] a lane, row r = [re(hop r) |
-//     im(hop r) | 0] (w = 2 hop rounded up to 128): depth r lw + c is row
-//     f + r, column c, lw = 2 hop rounded up to 32, so any hop works and
-//     the boxes wholly in the pad columns [lw, w) are never loaded (their
-//     weight rows are zero).
+//   PlaneWalk (K4b / K4 where hop is a multiple of 32 samples): two
+//     planes (re, im) [rows, hop] a lane, rows = frames + n / hop - 1:
+//     frame f at depth d < n of either half is plane row f + d / hop,
+//     column d % hop (a box never crosses a plane row);
+//   ChunkWalk (K6 at any hop; K4b / K4 at every other hop): the chunk
+//     rows [rows, w] a lane, row r = [re(hop r) | im(hop r) | 0]: depth
+//     r lw + c is row f + r, column c, lw = 2 hop rounded up to 32, so any
+//     hop works.  K6 keeps the JAX kernel's rows (w = 2 hop rounded up to
+//     128; the boxes wholly in the pad columns [lw, w) are never loaded);
+//     K4b / K4 write rows of w = lw.  Either way W holds the plane walk's
+//     values with its rows in chunk order and zero rows for the pad
+//     columns, so the walks differ only in the f32 summation order.
 //
 // Rows past the lane read as zero: no frame matrix is written and no tile
 // reads another lane's rows.  B is W through P1's MN-major map (128-byte
@@ -132,8 +135,8 @@ __device__ __forceinline__ float faw_of(const float (&d)[128], int p, int i,
                      cabs_rn(d[reg(p, 6, i, c)], d[reg(p, 7, i, c)]));
 }
 
-// K4b's A walk: the box of depths d .. d + 31 of the frames f0 .. f0 + 127
-// of `lane` in the planes [lanes, 2, rows, hop].
+// The plane walk: the box of depths d .. d + 31 of the frames f0 .. f0 +
+// 127 of `lane` in the planes [lanes, 2, rows, hop].
 struct PlaneWalk {
     int n, hop;
     __device__ void box(int lane, int f0, int d, int& c0, int& c1,
@@ -146,7 +149,7 @@ struct PlaneWalk {
     }
 };
 
-// K6's A walk: the same box in the chunk rows [lanes, rows, w].
+// The chunk walk: the same box in the chunk rows [lanes, rows, w].
 struct ChunkWalk {
     int lw;
     __device__ void box(int lane, int f0, int d, int& c0, int& c1,
@@ -284,7 +287,8 @@ __device__ __forceinline__ void finish_sweep(const Sweep (&sw)[2],
     }
 }
 
-// depth: the product's depth (2n for K4b, R lw for K6), a multiple of kBk.
+// depth: the product's depth (2n on the plane walk, R lw on the chunk
+// walk), a multiple of kBk.
 template <bool kPeaks, class Walk>
 __global__ void __launch_bounds__(ring::kThreads, 1)
 direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -411,8 +415,8 @@ direct_product_kernel(const __grid_constant__ CUtensorMap map_a,
     }
 }
 
-// K4b's pre-pass: each lane's samples as bf16 planes [lanes, 2 (re, im),
-// plane_len], zero past t_len.
+// The plane walk's pre-pass: each lane's samples as bf16 planes [lanes,
+// 2 (re, im), plane_len], zero past t_len.
 __global__ void chunk_planes_kernel(const float2* __restrict__ iq,
                                     __nv_bfloat16* __restrict__ planes,
                                     int lanes, int t_len,
@@ -428,8 +432,8 @@ __global__ void chunk_planes_kernel(const float2* __restrict__ iq,
     }
 }
 
-// K6's pre-pass: each lane's chunk rows as bf16 [lanes, rows, w], row r
-// = [re(hop r) | im(hop r) | 0], zero past t_len.
+// The chunk walk's pre-pass: each lane's chunk rows as bf16 [lanes, rows,
+// w], row r = [re(hop r) | im(hop r) | 0], zero past t_len.
 __global__ void chunk_rows_kernel(const float2* __restrict__ iq,
                                   __nv_bfloat16* __restrict__ rows_out,
                                   int lanes, int t_len, int rows, int hop,
@@ -475,30 +479,67 @@ int launch_product(const CUtensorMap& map_a, const void* w, const Out& out,
     return (int)cudaGetLastError();
 }
 
+// The chunk walk at any hop: the pre-pass writes the chunk rows [lanes,
+// frames + R - 1, width] and the product walks them against W [R lw, 8K]
+// (lw = 2 hop rounded up to 32, width >= lw).
 template <bool kPeaks>
-int launch_direct(const float* iq, const void* w, void* planes,
+int launch_chunks(const float* iq, const void* w, void* rows_scratch,
+                  const Out& out, int lanes, int t_len, int frames, int hop,
+                  int width, int k, int m, float threshold, int sms,
+                  cudaStream_t stream) {
+    const int lw = (2 * hop + kBox - 1) / kBox * kBox;
+    if (width % 8 || width < lw) return cudaErrorInvalidValue;
+    const int rows = frames + kR - 1;
+    const int blocks = ring::prepass_blocks((long long)lanes * rows * width,
+                                            sms);
+    chunk_rows_kernel<<<blocks, 256, 0, stream>>>(
+        reinterpret_cast<const float2*>(iq),
+        reinterpret_cast<__nv_bfloat16*>(rows_scratch), lanes, t_len, rows,
+        hop, width);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    CUtensorMap map_a;
+    err = hopper::make_map_bf16_planes(&map_a, rows_scratch, lanes, rows,
+                                       width, kBm, kBox);
+    if (err) return err;
+    return launch_product<kPeaks>(map_a, w, out, ChunkWalk{lw}, lanes,
+                                  frames, kR * lw, k, m, threshold, sms,
+                                  stream);
+}
+
+// K4b / K4: the plane walk where hop is a multiple of 32 samples, else
+// the chunk walk on rows of lw columns.
+template <bool kPeaks>
+int launch_direct(const float* iq, const void* w, void* scratch,
                   const Out& out, int lanes, int t_len, int frames, int n,
                   int hop, int k, int m, float threshold,
                   cudaStream_t stream) {
     if (lanes <= 0 || frames <= 0) return 0;
-    // Limits: a 32-deep A box within one plane row, the re / im halves on
-    // a stage boundary, whole 32-bin column tiles, M in the lists' reach.
-    if (hop <= 0 || hop % kBox || n % hop || n % kBk || k % kTileBins ||
-        t_len < 0 || (kPeaks && (m < 1 || m > kMaxM)))
+    // Limits: n = R hop, whole 32-bin column tiles, M in the lists' reach.
+    if (hop <= 0 || n != kR * hop || k % kTileBins || t_len < 0 ||
+        (kPeaks && (m < 1 || m > kMaxM)))
         return cudaErrorInvalidValue;
-    const long long rows = (long long)frames + n / hop - 1;
-    const long long plane_len = rows * hop;
     int sms = 0;
     int err = ring::sm_count(sms);
     if (err) return err;
+    if (hop % kBox) {
+        const int lw = (2 * hop + kBox - 1) / kBox * kBox;
+        return launch_chunks<kPeaks>(iq, w, scratch, out, lanes, t_len,
+                                     frames, hop, lw, k, m, threshold, sms,
+                                     stream);
+    }
+    // The plane walk: a 32-deep A box within one plane row, and (n a
+    // multiple of 256) the re / im halves on a stage boundary.
+    const long long rows = (long long)frames + kR - 1;
+    const long long plane_len = rows * hop;
     const int blocks = ring::prepass_blocks((long long)lanes * plane_len, sms);
     chunk_planes_kernel<<<blocks, 256, 0, stream>>>(
         reinterpret_cast<const float2*>(iq),
-        reinterpret_cast<__nv_bfloat16*>(planes), lanes, t_len, plane_len);
+        reinterpret_cast<__nv_bfloat16*>(scratch), lanes, t_len, plane_len);
     err = (int)cudaGetLastError();
     if (err) return err;
     CUtensorMap map_a;
-    err = hopper::make_map_bf16_planes(&map_a, planes, 2ULL * lanes, rows,
+    err = hopper::make_map_bf16_planes(&map_a, scratch, 2ULL * lanes, rows,
                                        hop, kBm, kBox);
     if (err) return err;
     return launch_product<kPeaks>(map_a, w, out, PlaneWalk{n, hop}, lanes,
@@ -508,24 +549,27 @@ int launch_direct(const float* iq, const void* w, void* planes,
 
 }  // namespace
 
-// planes: bf16 scratch [lanes, 2, frames + n / hop - 1, hop].
+// Where hop is a multiple of 32 samples: w bf16 [2n, 8K] and scratch the
+// planes, bf16 [lanes, 2, frames + 7, hop]; at any other hop: w bf16
+// [8 lw, 8K] in chunk-row order (lw = 2 hop rounded up to 32) and scratch
+// the chunk rows, bf16 [lanes, frames + 7, lw].
 extern "C" int grl_direct_spectra(const float* iq, const void* w,
-                                  void* planes, float* fa, float* faw,
+                                  void* scratch, float* fa, float* faw,
                                   float* hs, int lanes, int t_len,
                                   int frames, int n, int hop, int k,
                                   void* stream) {
     Out out = {fa, faw, hs, nullptr, nullptr, nullptr, nullptr};
-    return launch_direct<false>(iq, w, planes, out, lanes, t_len, frames, n,
-                                hop, k, 1, 0.0f, (cudaStream_t)stream);
+    return launch_direct<false>(iq, w, scratch, out, lanes, t_len, frames,
+                                n, hop, k, 1, 0.0f, (cudaStream_t)stream);
 }
 
-extern "C" int grl_direct_peaks(const float* iq, const void* w, void* planes,
-                                int* bins, float* h, float* h_single,
-                                uint8_t* valid, int lanes, int t_len,
-                                int frames, int n, int hop, int k, int m,
-                                float threshold, void* stream) {
+extern "C" int grl_direct_peaks(const float* iq, const void* w,
+                                void* scratch, int* bins, float* h,
+                                float* h_single, uint8_t* valid, int lanes,
+                                int t_len, int frames, int n, int hop, int k,
+                                int m, float threshold, void* stream) {
     Out out = {nullptr, nullptr, nullptr, bins, h, h_single, valid};
-    return launch_direct<true>(iq, w, planes, out, lanes, t_len, frames, n,
+    return launch_direct<true>(iq, w, scratch, out, lanes, t_len, frames, n,
                                hop, k, m, threshold, (cudaStream_t)stream);
 }
 
@@ -536,27 +580,13 @@ extern "C" int grl_chunk_spectra(const float* iq, const void* w,
                                  float* hs, int lanes, int t_len, int frames,
                                  int hop, int width, int k, void* stream) {
     if (lanes <= 0 || frames <= 0) return 0;
-    const int lw = (2 * hop + kBox - 1) / kBox * kBox;
-    if (hop <= 0 || width % 8 || width < lw || k % kTileBins || t_len < 0)
+    if (hop <= 0 || k % kTileBins || t_len < 0)
         return cudaErrorInvalidValue;
-    const int rows = frames + kR - 1;
-    const cudaStream_t st = (cudaStream_t)stream;
     int sms = 0;
-    int err = ring::sm_count(sms);
-    if (err) return err;
-    const int blocks = ring::prepass_blocks((long long)lanes * rows * width,
-                                            sms);
-    chunk_rows_kernel<<<blocks, 256, 0, st>>>(
-        reinterpret_cast<const float2*>(iq),
-        reinterpret_cast<__nv_bfloat16*>(rows_scratch), lanes, t_len, rows,
-        hop, width);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    CUtensorMap map_a;
-    err = hopper::make_map_bf16_planes(&map_a, rows_scratch, lanes, rows,
-                                       width, kBm, kBox);
+    const int err = ring::sm_count(sms);
     if (err) return err;
     Out out = {fa, faw, hs, nullptr, nullptr, nullptr, nullptr};
-    return launch_product<false>(map_a, w, out, ChunkWalk{lw}, lanes, frames,
-                                 kR * lw, k, 1, 0.0f, sms, st);
+    return launch_chunks<false>(iq, w, rows_scratch, out, lanes, t_len,
+                                frames, hop, width, k, 1, 0.0f, sms,
+                                (cudaStream_t)stream);
 }

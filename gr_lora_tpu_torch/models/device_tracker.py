@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import (PYRAMID_NUM_PREAMBLE, PYRAMID_OVERLAP_FACTOR,
-                      LoraConfig)
+                      PYRAMID_PACKET_POOL, LoraConfig)
 from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
 from ..ops.device_tracker import STATE_FIELDS, TrackerWalk
@@ -48,14 +48,24 @@ def flush_hops(grace: int = 0) -> int:
     return (PYRAMID_NUM_PREAMBLE + 3) * _OV + _TTL0 + 2 + grace
 
 
-@lru_cache(maxsize=None)
 def make_device_tracker(cfg: LoraConfig, max_peaks: int = 16,
-                        grace: int = 0, **pools) -> TrackerWalk:
-    """The walk of one tracker configuration (``make_device_tracker``'s
-    arguments: ``track_pool``, ``packet_pool``, ``max_symbols``,
-    ``out_pool``, ``finalize_per_hop``, ``expire_per_hop``,
-    ``split_repeats``, ``quantize``), shared by every caller."""
-    return TrackerWalk(cfg, max_peaks, grace, **pools)
+                        grace: int = 0, track_pool: int = 64,
+                        packet_pool: int = PYRAMID_PACKET_POOL,
+                        max_symbols: int = 96, out_pool: int = 32,
+                        finalize_per_hop: int = 8, expire_per_hop: int = 4,
+                        split_repeats: bool = False,
+                        quantize: str = "round") -> TrackerWalk:
+    """The walk of one tracker configuration (the JAX
+    ``make_device_tracker``'s arguments), shared by every caller that
+    names the same configuration, however it passes the arguments."""
+    return _walk(cfg, max_peaks, grace, track_pool, packet_pool,
+                 max_symbols, out_pool, finalize_per_hop, expire_per_hop,
+                 split_repeats, quantize)
+
+
+@lru_cache(maxsize=None)
+def _walk(*args) -> TrackerWalk:
+    return TrackerWalk(*args)
 
 
 def init_state(cfg: LoraConfig, channels: int, max_peaks: int = 16,

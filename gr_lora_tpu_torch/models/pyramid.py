@@ -34,6 +34,7 @@ On a CPU tensor every kernel module runs its plain version.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -177,6 +178,26 @@ def peak_lattice_fn(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
     if backend == "xla" and n * 4 * cfg.bin_size > _DIRECT_MAX_ELEMS:
         backend = "fast"
     return DenseLattice(cfg, num_hops, max_peaks, backend)
+
+
+def make_peak_lattice(cfg: LoraConfig, num_hops: int, max_peaks: int = 16,
+                      backend: str = "xla",
+                      device: str | torch.device = DEFAULT_DEVICE,
+                      block_hops: int | None = None) -> nn.Module:
+    """The :func:`peak_lattice_fn` module of one shape on ``device`` (the
+    card unless the caller passes ``device="cpu"``), built and its weights
+    uploaded once: a later call with the same arguments, however they are
+    passed, returns the same module (the JAX ``make_peak_lattice``'s
+    ``lru_cache``).  Its kernel modules' ``launches`` count every caller's
+    launches.  The cache keeps the newest 32 shapes."""
+    return _lattice(cfg, num_hops, max_peaks, backend, block_hops,
+                    resolve_device(device))
+
+
+@lru_cache(maxsize=32)
+def _lattice(cfg, num_hops, max_peaks, backend, block_hops, device):
+    return peak_lattice_fn(cfg, num_hops, max_peaks, backend,
+                           block_hops=block_hops).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +663,7 @@ def pyramid_demodulate(iq, cfg: LoraConfig, max_peaks: int = 16,
     nh = num_hops_for(cfg, x.shape[0])
     if nh == 0:
         return []
-    lattice = peak_lattice_fn(cfg, nh, max_peaks, backend).to(x.device)
+    lattice = make_peak_lattice(cfg, nh, max_peaks, backend, x.device)
     with torch.no_grad():
         bins, h, hs, valid = (t.cpu().numpy() for t in lattice(x))
 
@@ -678,8 +699,8 @@ class StreamingPyramidDemodulator:
         self._drained = 0          # symbols_out entries already returned
         self._grace = grace
         self._pending = np.zeros((0, 2), np.float32)
-        self._lattice = peak_lattice_fn(cfg, block_hops, max_peaks,
-                                        backend).to(self.device)
+        self._lattice = make_peak_lattice(cfg, block_hops, max_peaks,
+                                          backend, self.device)
 
     @torch.no_grad()
     def feed(self, iq) -> list[np.ndarray]:

@@ -26,11 +26,9 @@ pinned memory.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..config import TIMESTAMP_MOD, LoraConfig
 from ..core.codec import decode
@@ -38,20 +36,10 @@ from ..core.header import calc_sym_num
 from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
 from ..models.modulator import modulate
-from ..models.pyramid import (PyramidTracker, make_tracker, num_hops_for,
-                              peak_lattice_fn, step_lattice)
+from ..models.pyramid import (PyramidTracker, make_peak_lattice,
+                              make_tracker, num_hops_for, step_lattice)
 from ..ops.cplx import to_ri
 from ..ops.dechirp import down_peak, up_peak
-
-
-@lru_cache(maxsize=16)
-def lattice(cfg: LoraConfig, nh: int, max_peaks: int, backend: str,
-            block_hops: int | None, device: torch.device) -> nn.Module:
-    """The peak lattice of one window shape on ``device``, built (weights
-    uploaded) once: every dense pass over a buffer of that length reuses
-    it.  Its kernel modules count the launches SIC's passes make."""
-    return peak_lattice_fn(cfg, nh, max_peaks, backend,
-                           block_hops=block_hops).to(device)
 
 
 @dataclasses.dataclass
@@ -84,7 +72,10 @@ def _demod_pass(iq_ri: np.ndarray, cfg: LoraConfig, max_peaks: int,
     nh = num_hops_for(cfg, iq_ri.shape[0])
     if nh == 0:
         return []
-    lat = lattice(cfg, nh, max_peaks, backend, lattice_block_hops, device)
+    # One module a window shape (models/pyramid.make_peak_lattice's cache,
+    # shared with pyramid_demodulate): every pass reuses it.
+    lat = make_peak_lattice(cfg, nh, max_peaks, backend, device,
+                            block_hops=lattice_block_hops)
     with torch.no_grad():
         bins, h, hs, valid = (t.cpu().numpy()
                               for t in lat(_upload(iq_ri, device)))

@@ -8,7 +8,8 @@ compiler, no nvcc, into ``gr_lora_tpu_torch/_build/liblora_host.so``
 newer than the library.  A file lock serialises concurrent builds (several
 test processes import this at once) and the library is renamed into
 place, so no reader sees a half-written file.  A failed build raises with
-the compiler's output: there is no fallback.
+the compiler's output: there is no fallback (:func:`available` reports
+whether it builds, and is used by no caller to choose another path).
 
 Bound: :class:`PyramidTracker` (one stream), :class:`MultiPyramidTracker`
 (a bank of per-channel trackers fed whole ``[C, H, M]`` peak blocks), the
@@ -90,6 +91,18 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(build())))
         return _lib
+
+
+def available() -> bool:
+    """Whether the host library builds (or is built) and loads.  Never
+    raises; a report, not a fallback: the port's callers still choose the
+    native tracker with their own ``use_native`` rule, which raises on a
+    failed build."""
+    try:
+        library()
+    except Exception:
+        return False
+    return True
 
 
 class LoraParams(ctypes.Structure):

@@ -15,7 +15,8 @@ Two conventions exist in the reference and must interoperate:
 The two differ by a constant phase and a half-bin frequency offset which the
 preamble-relative CFO estimate cancels exactly.  Our TX uses the closed form
 (so TX supports any samples-per-chip p natively, a superset of the reference
-p=1 modulator).
+p=1 modulator); ``mod_reference_tables`` reproduces the accumulator variant
+bit-for-bit for cross-validation.
 """
 
 from __future__ import annotations
@@ -41,6 +42,18 @@ def chirp_tables(sf: int, p: int) -> tuple[np.ndarray, np.ndarray]:
     up = np.conj(down)
     up.setflags(write=False)
     down.setflags(write=False)
+    return up, down
+
+
+@lru_cache(maxsize=None)
+def mod_reference_tables(sf: int) -> tuple[np.ndarray, np.ndarray]:
+    """The accumulator-form 1-sample-per-chip tables, bit-compatible with the
+    reference modulator (mod_impl.cc:60-69)."""
+    n = 1 << sf
+    i = np.arange(n, dtype=np.float64)
+    acc = -np.pi * (i + 1) + np.pi * i * (i + 1) / n
+    up = np.exp(1j * acc).astype(np.complex64)
+    down = np.conj(up)
     return up, down
 
 

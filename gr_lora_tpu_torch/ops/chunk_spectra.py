@@ -17,10 +17,11 @@ walk: a pre-pass writes the chunk rows once in bf16 [rows, w], and frame
 f at depth r lw + c (lw = 2 hop rounded up to 32) is chunk row f + r,
 column c, so each A tile of 128 frames x 32 depths is one TMA box and the
 boxes of the pad columns [lw, w) are never loaded (their weight rows are
-zero).  Its weights are :func:`kernel_weights`, the component weights'
-bf16 values re-laid once (rows r lw + c, columns in K4b's 16-bin
-interleave): a permutation, so they equal ``direct_weights`` row for row.
-Any hop works.  On a CPU tensor it runs :meth:`ChunkSpectra.plain`, the
+zero).  Its weights are ``ops/direct.chunk_weights``, K4b's
+``direct_weights`` with the rows in chunk order (rows r lw + c, columns
+in K4b's 16-bin interleave), the bf16 values of the component weights
+re-laid (a permutation; K4b / K4 run the same walk and W at the hops
+their plane walk does not take).  Any hop works.  On a CPU tensor it runs :meth:`ChunkSpectra.plain`, the
 same numeric class in plain PyTorch.  The JAX kernel's frame-tile padding
 of the frame count is dropped: the chunk rows cover exactly
 ``num_frames + R - 1`` hops.
@@ -42,7 +43,7 @@ from ..config import PYRAMID_OVERLAP_FACTOR, LoraConfig
 from . import _build
 from .chirp import chirp_tables
 from .dechirp import kaiser_window
-from .direct import BOX, FRAME_TILE, TILE_BINS
+from .direct import BOX, FRAME_TILE, chunk_weights, live_width
 from .rdft_spectra import bf16_matmul
 
 _R = PYRAMID_OVERLAP_FACTOR
@@ -51,12 +52,6 @@ _R = PYRAMID_OVERLAP_FACTOR
 def row_width(hop: int) -> int:
     """Chunk row width: 2 hop rounded up to a multiple of 128."""
     return -(-2 * hop // 128) * 128
-
-
-def live_width(hop: int) -> int:
-    """Columns of a chunk row the kernel reads: 2 hop rounded up to a
-    multiple of its 32-deep box."""
-    return -(-2 * hop // BOX) * BOX
 
 
 @lru_cache(maxsize=4)
@@ -96,22 +91,6 @@ def component_weights(sf: int, p: int, fft_factor: int,
     return torch.from_numpy(out).to(torch.bfloat16)
 
 
-@lru_cache(maxsize=4)
-def kernel_weights(sf: int, p: int, fft_factor: int,
-                   beta: float) -> torch.Tensor:
-    """bf16 [R lw, 8K]: :func:`component_weights` re-laid for the kernel.
-    Row r lw + c is chunk-layout row r w + c (rows c >= lw, all zero,
-    dropped); column 128 g + 32 c + 16 j + b of 16-bin tile g is bin
-    16 g + b of matrix 2c + j, K4b's interleave (ops/direct.py)."""
-    n = p << sf
-    hop = n // _R
-    w, lw = row_width(hop), live_width(hop)
-    k = fft_factor << sf
-    cw = component_weights(sf, p, fft_factor, beta)        # [8, R w, K]
-    x = cw.reshape(4, 2, _R, w, k // TILE_BINS, TILE_BINS)[:, :, :, :lw]
-    return x.permute(2, 3, 4, 0, 1, 5).reshape(_R * lw, 8 * k).contiguous()
-
-
 def row_chunks(iq: torch.Tensor, hop: int, width: int,
                num_frames: int) -> torch.Tensor:
     """iq float32 [..., T, 2] -> chunk rows float32 [..., num_frames + R - 1,
@@ -131,9 +110,9 @@ class ChunkSpectra(nn.Module):
     """iq float32 [..., T, 2] -> (fa, faw, hs) float32 [..., num_frames, K].
 
     Buffers: ``w`` bf16 [8, R*w, K] (the plain version's) and ``w_kernel``
-    bf16 [R lw, 8K] (the kernel's), built once per config.  ``launches``
-    counts kernel launches made through :meth:`forward` (one per call on
-    a CUDA tensor)."""
+    bf16 [R lw, 8K] (the kernel's, ``ops/direct.chunk_weights``), built
+    once per config.  ``launches`` counts kernel launches made through
+    :meth:`forward` (one per call on a CUDA tensor)."""
 
     def __init__(self, cfg: LoraConfig, num_frames: int):
         super().__init__()
@@ -143,7 +122,7 @@ class ChunkSpectra(nn.Module):
         self.num_frames = num_frames
         self.register_buffer("w", component_weights(
             cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta)))
-        self.register_buffer("w_kernel", kernel_weights(
+        self.register_buffer("w_kernel", chunk_weights(
             cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta)))
         self.launches = 0
 

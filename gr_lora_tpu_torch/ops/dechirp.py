@@ -159,9 +159,12 @@ def fold_spectra(bands):
 
 
 def frame_signal(iq: torch.Tensor, frame_len: int, hop: int,
-                 num_frames: int) -> torch.Tensor:
+                 num_frames: int, start: int = 0) -> torch.Tensor:
     """Strided frames [..., num_frames, frame_len, 2] of IQ [..., T, 2],
-    zero-padded past T."""
+    frame f at samples start + f hop .. + frame_len, zero-padded past T."""
+    if start < 0:
+        raise ValueError(f"start must be >= 0: {start}")
+    iq = iq[..., start:, :]
     need = (num_frames - 1) * hop + frame_len
     pad = need - iq.shape[-2]
     if pad > 0:

@@ -41,6 +41,8 @@ import torch
 from ..config import (PYRAMID_MAX_TRACK_PEAKS, PYRAMID_NUM_PREAMBLE,
                       PYRAMID_OVERLAP_FACTOR, PYRAMID_PACKET_POOL,
                       TIMESTAMP_MOD, LoraConfig)
+from ..device import DEFAULT as DEFAULT_DEVICE
+from ..device import resolve as resolve_device
 from . import _build
 
 _OV = PYRAMID_OVERLAP_FACTOR
@@ -151,9 +153,11 @@ class TrackerWalk:
                             else (c,))
         return sh
 
-    def init_state(self, channels: int, device="cpu") -> dict:
+    def init_state(self, channels: int, device=DEFAULT_DEVICE) -> dict:
         """A fresh state of ``channels`` trackers (the JAX ``init_state``
-        under ``jax.vmap``: a leading channel axis)."""
+        under ``jax.vmap``: a leading channel axis) on ``device``, the
+        card unless the caller passes ``device="cpu"``."""
+        device = resolve_device(device)
         sh = self.shapes(channels)
         st = {name: torch.zeros(sh[name], dtype=dt, device=device)
               for name, dt in STATE_FIELDS}

@@ -11,24 +11,32 @@ raw samples, not the dechirped ones, are rounded to bf16 (the rDFT
 kernels round after the dechirp).
 
 On a CUDA tensor both launch ``csrc/direct_spectra.cu``: a pre-pass
-writes each lane's samples once as bf16 planes (re, im) of hop-sample
-rows, and the product (``wgmma`` + TMA) loads its frame tiles from them as
-boxes (frame f at depth d is plane row f + d // hop), so no frame matrix
-is written; the folds are taken from the accumulator registers.
+writes each lane's samples once in bf16, and the product (``wgmma`` + TMA)
+loads its frame tiles from that copy as 32-deep boxes, so no frame matrix
+is written; the folds are taken from the accumulator registers.  Where
+hop = n / 8 is a multiple of 32 samples (n = p 2^sf >= 256) the copy is
+two planes (re, im) of hop-sample rows (the plane walk: frame f at depth
+d is plane row f + d // hop); at any other hop (SF6 x p 2, SF7 x p 1, an
+odd p) it is chunk rows ``[re(hop) | im(hop) | 0]`` of lw = 2 hop rounded
+up to 32 columns (the chunk walk, K6's: frame f at depth r lw + c is row
+f + r, column c) against :func:`chunk_weights`, the same bf16 weights
+with their rows in that order and zero rows for the pad columns, so the
+two walks differ only in the f32 summation order.
 :class:`DirectSpectra` writes fa / faw / hs; :class:`DirectPeaks` runs the
 peak search in the same kernel's epilogue, a sweep along each frame's
 row of bin tiles, and writes only the [..., H, M] peaks.  Its per-frame
 top-M lists live in shared memory and take M <= 16 (:data:`FUSED_MAX_PEAKS`);
 for a larger M, :class:`DirectPeaks` runs K4b's kernel and then the
 ``peak_topm`` kernel (ops/peak_epilogue.launch_topm), counted as a K4b
-launch, not a K4 one.  The kernel serves hop = n / 8 a multiple of 32
-samples (n = p 2^sf >= 256) and raises otherwise.  On a CPU tensor both
-run their plain versions, the same numeric class in plain PyTorch.
+launch, not a K4 one.  The kernel serves every hop and K a multiple of
+32.  On a CPU tensor both run their plain versions, the same numeric
+class in plain PyTorch.
 
-:func:`chunk_planes`, :func:`tile_frames`, :func:`tile_spectra` and
-:func:`sweep_peaks` are the kernel's walk in plain torch, for the tests:
-the planes, the box arithmetic, wgmma's accumulator-to-bin mapping and
-the row sweep with its deferred wrap.
+:func:`prepass`, :func:`tile_frames`, :func:`chunk_depths`,
+:func:`tile_spectra` and :func:`sweep_peaks` are the kernel's walk in
+plain torch, for the tests: the pre-pass's copy, the box arithmetic, the
+depth order, wgmma's accumulator-to-bin mapping and the row sweep with
+its deferred wrap.
 """
 
 from __future__ import annotations
@@ -86,12 +94,56 @@ def direct_weights(sf: int, p: int, fft_factor: int,
     return torch.from_numpy(cols.reshape(2 * n, 8 * k)).to(torch.bfloat16)
 
 
+def live_width(hop: int) -> int:
+    """Columns of a chunk row the kernel reads: 2 hop rounded up to a
+    multiple of its 32-deep box."""
+    return -(-2 * hop // BOX) * BOX
+
+
+def plane_walk(hop: int) -> bool:
+    """Whether K4b / K4 walk the sample planes (hop a multiple of 32
+    samples, so a box never crosses a plane row) or the chunk rows."""
+    return hop % BOX == 0
+
+
+def chunk_depths(n: int) -> torch.Tensor:
+    """int64 [R lw]: the column of a frame's ``[Re x | Im x]`` (the row of
+    :func:`direct_weights`) that each depth of the chunk walk reads, -1
+    for a pad column: depth r lw + c is re sample r hop + c (c < hop), im
+    sample r hop + c - hop (c < 2 hop), pad above.  (The plane walk reads
+    0 .. 2n - 1 in order.)"""
+    hop = n // _R
+    lw = live_width(hop)
+    d = torch.arange(_R * lw)
+    r, c = d // lw, d % lw
+    return torch.where(c < hop, r * hop + c,
+                       torch.where(c < 2 * hop, n + r * hop + c - hop, -1))
+
+
+@lru_cache(maxsize=4)
+def chunk_weights(sf: int, p: int, fft_factor: int,
+                  beta: float) -> torch.Tensor:
+    """bf16 [R lw, 8K]: :func:`direct_weights`' rows in the chunk walk's
+    depth order (:func:`chunk_depths`), zero rows for the pad columns —
+    the W of K4b / K4 on the chunk walk and of K6
+    (ops/chunk_spectra.ChunkSpectra), which is its JAX kernel's weights
+    re-laid (tests/test_torch_product_tiles.py)."""
+    w = direct_weights(sf, p, fft_factor, beta)
+    src = chunk_depths(p << sf)
+    out = torch.zeros((src.numel(), w.shape[1]), dtype=w.dtype)
+    ok = src >= 0
+    out[ok] = w[src[ok]]
+    return out
+
+
 class DirectSpectra(nn.Module):
     """iq float32 [..., T, 2] -> (fa, faw, hs) float32 [..., num_frames, K].
 
-    Buffer: ``w`` bf16 [2n, 8K] (built once per config).  ``launches``
-    counts kernel launches made through :meth:`forward` (one per call on
-    a CUDA tensor)."""
+    Buffers: ``w`` bf16 [2n, 8K] (the plain version's, and the kernel's on
+    the plane walk) and, on the chunk walk, ``w_kernel`` bf16 [R lw, 8K]
+    (:func:`chunk_weights`), built once per config.  ``launches`` counts
+    kernel launches made through :meth:`forward` (one per call on a CUDA
+    tensor)."""
 
     def __init__(self, cfg: LoraConfig, num_frames: int):
         super().__init__()
@@ -99,8 +151,11 @@ class DirectSpectra(nn.Module):
         self.hop = self.n // _R
         self.k = cfg.bin_size
         self.num_frames = num_frames
-        self.register_buffer("w", direct_weights(
-            cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta)))
+        self.plane_walk = plane_walk(self.hop)
+        args = (cfg.sf, cfg.p, cfg.fft_factor, float(cfg.beta))
+        self.register_buffer("w", direct_weights(*args))
+        if not self.plane_walk:
+            self.register_buffer("w_kernel", chunk_weights(*args))
         self.launches = 0
 
     def forward(self, iq: torch.Tensor):
@@ -126,29 +181,30 @@ class DirectSpectra(nn.Module):
         return m0 + m1, m2 + m3, torch.maximum(m0, m1)
 
     def launch_args(self, iq: torch.Tensor):
-        """(iq [lanes, T, 2] contiguous, its leading shape, the planes
-        scratch) for a kernel launch; raises on what the kernel does not
-        take."""
+        """(iq [lanes, T, 2] contiguous, its leading shape, the pre-pass's
+        scratch, the kernel's W) for a kernel launch; raises on what the
+        kernel does not take."""
         if not iq.is_cuda or iq.dtype != torch.float32 or iq.shape[-1] != 2:
             raise ValueError("the direct kernel takes CUDA float32 [..., T, 2]")
         if self.w.device != iq.device:
             raise ValueError(f"module on {self.w.device}, iq on {iq.device}")
-        if self.hop % BOX or self.n % 64 or self.k % BIN_TILE:
-            raise RuntimeError(
-                f"the direct kernel needs hop = n / 8 a multiple of {BOX} "
-                f"samples (n = p 2^sf >= 256) and K a multiple of "
-                f"{BIN_TILE}: n {self.n}, hop {self.hop}, K {self.k}")
+        if self.k % BIN_TILE:
+            raise RuntimeError(f"the direct kernel needs K a multiple of "
+                               f"{BIN_TILE}: K {self.k}")
         x = iq.reshape(-1, iq.shape[-2], 2).contiguous()
-        # The kernel's planes: rows of hop samples, as many as the last
-        # frame reaches (frames + n / hop - 1).
-        rows = self.num_frames + self.n // self.hop - 1
-        planes = torch.empty((x.shape[0], 2, rows, self.hop),
-                             dtype=torch.bfloat16, device=iq.device)
-        return x, iq.shape[:-2], planes
+        # The pre-pass's rows: as many hops as the last frame reaches.
+        rows = self.num_frames + _R - 1
+        if self.plane_walk:
+            shape, w = (x.shape[0], 2, rows, self.hop), self.w
+        else:
+            shape = (x.shape[0], rows, live_width(self.hop))
+            w = self.w_kernel
+        scratch = torch.empty(shape, dtype=torch.bfloat16, device=iq.device)
+        return x, iq.shape[:-2], scratch, w
 
     def kernel(self, iq: torch.Tensor):
         """Kernel (fa, faw, hs) [..., H, K] for a CUDA iq (not counted)."""
-        x, lead, planes = self.launch_args(iq)
+        x, lead, scratch, w = self.launch_args(iq)
         lanes, t_len = x.shape[0], x.shape[1]
         out = torch.empty((3, lanes, self.num_frames, self.k),
                           dtype=torch.float32, device=iq.device)
@@ -156,7 +212,7 @@ class DirectSpectra(nn.Module):
         lib = _build.library()
         with torch.cuda.device(iq.device):
             err = lib.grl_direct_spectra(
-                x.data_ptr(), self.w.data_ptr(), planes.data_ptr(),
+                x.data_ptr(), w.data_ptr(), scratch.data_ptr(),
                 fa.data_ptr(), faw.data_ptr(), hs.data_ptr(), lanes, t_len,
                 self.num_frames, self.n, self.hop, self.k,
                 _build.stream_of(x))
@@ -204,7 +260,7 @@ class DirectPeaks(nn.Module):
             raise ValueError(f"max_peaks of the fused search must be in "
                              f"[1, {FUSED_MAX_PEAKS}]")
         fr = self.front
-        x, lead, planes = fr.launch_args(iq)
+        x, lead, scratch, w = fr.launch_args(iq)
         lanes, t_len = x.shape[0], x.shape[1]
         dev = iq.device
         shape = (lanes, self.num_frames, m)
@@ -215,7 +271,7 @@ class DirectPeaks(nn.Module):
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.grl_direct_peaks(
-                x.data_ptr(), fr.w.data_ptr(), planes.data_ptr(),
+                x.data_ptr(), w.data_ptr(), scratch.data_ptr(),
                 bins.data_ptr(), h.data_ptr(), h_single.data_ptr(),
                 valid.data_ptr(), lanes, t_len, self.num_frames, fr.n,
                 fr.hop, fr.k, m, self.threshold, _build.stream_of(x))
@@ -228,9 +284,9 @@ class DirectPeaks(nn.Module):
 # ---- the kernel's walk in plain torch (tests) ---------------------------
 
 def chunk_planes(iq: torch.Tensor, hop: int, rows: int) -> torch.Tensor:
-    """The pre-pass: iq [..., T, 2] -> bf16 planes [..., 2, rows, hop],
-    plane c row r column j the sample r hop + j of component c, zero past
-    T."""
+    """The plane walk's pre-pass: iq [..., T, 2] -> bf16 planes [..., 2,
+    rows, hop], plane c row r column j the sample r hop + j of component
+    c, zero past T."""
     t = iq.shape[-2]
     s = torch.arange(rows * hop)
     z = iq[..., s.clamp(max=t - 1), :]
@@ -239,16 +295,41 @@ def chunk_planes(iq: torch.Tensor, hop: int, rows: int) -> torch.Tensor:
         .to(torch.bfloat16)
 
 
-def tile_frames(planes: torch.Tensor, n: int, num_frames: int):
-    """A [..., frame tiles x 128, 2n] bf16 as the kernel's TMA boxes load
-    it from ``planes`` [..., 2, rows, hop]: depths d0 .. d0 + 31 (d0 a
-    multiple of 32) of half c of the frames f0 .. f0 + 127 are the box at
-    plane c, row f0 + d0 // hop, column d0 % hop; rows past the planes
-    read as zero."""
-    rows, hop = planes.shape[-2], planes.shape[-1]
-    if hop % BOX or n % hop:
-        raise ValueError(f"a {BOX}-deep box must lie within a plane row: "
-                         f"hop {hop}, n {n}")
+def prepass(iq: torch.Tensor, n: int, num_frames: int) -> torch.Tensor:
+    """The kernel's bf16 copy of iq [..., T, 2] for ``num_frames`` frames:
+    on the plane walk :func:`chunk_planes`; on the chunk walk the chunk
+    rows [..., num_frames + R - 1, lw] (ops/chunk_spectra.row_chunks at
+    width lw), zero past T."""
+    hop = n // _R
+    if plane_walk(hop):
+        return chunk_planes(iq, hop, num_frames + _R - 1)
+    from .chunk_spectra import row_chunks
+    return row_chunks(iq, hop, live_width(hop), num_frames) \
+        .to(torch.bfloat16)
+
+
+def tile_frames(scratch: torch.Tensor, n: int, num_frames: int):
+    """A [..., frame tiles x 128, depth] bf16 as the kernel's TMA boxes
+    load it from the pre-pass's copy (:func:`prepass`), in the product's
+    depth order (on the chunk walk :func:`chunk_depths`), rows past the
+    copy read as zero.
+    On the plane walk depths d0 .. d0 + 31 (d0 a multiple of 32) of half
+    c of the frames f0 .. f0 + 127 are the box at plane c, row f0 + d0 //
+    hop, column d0 % hop; on the chunk walk the box at row f0 + d0 // lw,
+    column d0 % lw (ops/chunk_spectra.tile_frames).  Either way a box
+    lies within one row."""
+    hop = n // _R
+    if not plane_walk(hop):
+        if scratch.shape[-1] != live_width(hop):
+            raise ValueError(f"hop {hop} reads chunk rows of "
+                             f"{live_width(hop)} columns, not "
+                             f"{tuple(scratch.shape)}")
+        from .chunk_spectra import tile_frames as chunk_tiles
+        return chunk_tiles(scratch, hop, num_frames)
+    rows = scratch.shape[-2]
+    if scratch.shape[-1] != hop or scratch.shape[-3] != 2:
+        raise ValueError(f"hop {hop} reads planes [2, rows, {hop}], not "
+                         f"{tuple(scratch.shape)}")
     fpad = -(-num_frames // FRAME_TILE) * FRAME_TILE
     f = torch.arange(fpad)[:, None]
     d = torch.arange(n)[None, :]
@@ -256,9 +337,9 @@ def tile_frames(planes: torch.Tensor, n: int, num_frames: int):
     row = f + d0 // hop
     col = d0 % hop + d % BOX
     inside = row < rows
-    halves = [torch.where(inside, planes[..., c, row.clamp(max=rows - 1),
-                                         col],
-                          torch.zeros((), dtype=planes.dtype))
+    halves = [torch.where(inside, scratch[..., c, row.clamp(max=rows - 1),
+                                          col],
+                          torch.zeros((), dtype=scratch.dtype))
               for c in (0, 1)]
     return torch.cat(halves, dim=-1)
 

@@ -157,12 +157,12 @@ class StreamingChannelizer:
         #: absolute OUTPUT-sample index of the next emitted sample
         self.out_pos = 0
 
-    def feed(self, iq) -> torch.Tensor:
+    def feed(self, iq_ri) -> torch.Tensor:
         """[T, 2] float32 (or [T] complex) — a host array, uploaded once
         from pinned memory, or a tensor — -> [C, M, 2] on the
         channelizer's device; M may be 0 while the filter history fills."""
         x = torch.cat([self._hist,
-                       upload(iq, self.device).reshape(-1, 2)], dim=0)
+                       upload(iq_ri, self.device).reshape(-1, 2)], dim=0)
         m = (x.shape[0] - self.w) // self.decim + 1
         if m <= 0:
             self._hist = x

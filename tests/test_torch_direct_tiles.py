@@ -1,11 +1,13 @@
-"""K4b / K4's walk (ops/direct: chunk_planes, tile_frames, tile_spectra,
-sweep_peaks — the plain-torch model of csrc/direct_spectra.cu) against the
-plain versions.
+"""K4b / K4's walk (ops/direct: prepass, chunk_planes, tile_frames,
+chunk_depths, tile_spectra, sweep_peaks — the plain-torch model of
+csrc/direct_spectra.cu) against the plain versions.
 
-- The frame tiles the kernel's TMA boxes read from the bf16 chunk planes
-  equal ``frame_signal``'s frames rounded to bf16, bit for bit, with
-  ``t_len`` no multiple of hop, shorter and longer than the frames need,
-  and a frame count no multiple of the 128-frame tile.
+- The frame tiles the kernel's TMA boxes read from the bf16 sample planes
+  (hop a multiple of 32 samples) or chunk rows (hops 8, 16 and 48) equal
+  ``frame_signal``'s frames rounded to bf16 in the product's depth order,
+  bit for bit, with ``t_len`` no multiple of hop, shorter and longer than
+  the frames need, and a frame count no multiple of the 128-frame tile;
+  the chunk rows' pad columns read as zero.
 - The spectra folded through wgmma's accumulator-to-bin mapping match
   ``DirectSpectra.plain`` within 1e-4 of the largest value (the model sums
   the same exact bf16 products in another order).
@@ -24,8 +26,9 @@ from gr_lora_tpu_torch.core.codec import encode
 from gr_lora_tpu_torch.models.modulator import modulate
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.ops.dechirp import frame_signal
-from gr_lora_tpu_torch.ops.direct import (DirectSpectra, chunk_planes,
-                                          sweep_peaks, tile_frames,
+from gr_lora_tpu_torch.ops.direct import (BOX, DirectSpectra, chunk_planes,
+                                          chunk_depths, live_width,
+                                          prepass, sweep_peaks, tile_frames,
                                           tile_spectra)
 from gr_lora_tpu_torch.ops.peak_epilogue import peaks_plain
 
@@ -33,9 +36,15 @@ CASES = [(7, 2), (7, 8), (8, 8)]
 HOPS = 150                      # two frame tiles, the second ragged
 
 
-def _cfg(sf, ff):
-    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False, explicit_header=True,
-                      payload_len=4, p=2, fft_factor=ff, threshold=5.0)
+#: (sf, ff, p) where hop = n / 8 is no multiple of 32: the chunk walk at
+#: hops 8, 16 and 48 (K 64 at SF6 x ff 1: two column tiles).
+CHUNK_CASES = [(6, 1, 1), (6, 8, 2), (7, 2, 3)]
+
+
+def _cfg(sf, ff, p=2):
+    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False,
+                      explicit_header=sf > 6, payload_len=4, p=p,
+                      fft_factor=ff, threshold=5.0)
 
 
 def _iq(cfg, t_len, seed):
@@ -83,9 +92,69 @@ def test_tile_frames_equal_frame_signal(sf, ff, extra):
 
 
 def test_tile_frames_refuses_a_box_across_rows():
-    planes = torch.zeros((1, 2, 20, 16), dtype=torch.bfloat16)
+    """At hop 16 (SF7 p 1) a 32-deep box would cross a plane row, so the
+    walk reads chunk rows of lw = 32 columns instead, every box within
+    one row; it refuses planes of 16-sample rows."""
+    cfg = _cfg(7, 8, 1)
+    n, hop = cfg.num_samples, cfg.num_samples // 8
+    assert hop == 16 and live_width(hop) == BOX
+    iq = _iq(cfg, _need(cfg, 40) - 5, seed=3)
+    rows = prepass(iq, n, 40)
+    assert rows.shape == (2, 47, BOX)
+    a = tile_frames(rows, n, 40)
+    src = chunk_depths(n)
+    assert a.shape == (2, 128, 8 * BOX) and bool((src >= 0).all())
+    fr = frame_signal(iq, n, hop, 40)
+    ref = torch.cat([fr[..., 0], fr[..., 1]], dim=-1).to(torch.bfloat16)
+    assert torch.equal(a[:, :40].view(torch.int16),
+                       ref[..., src].view(torch.int16))
     with pytest.raises(ValueError):
-        tile_frames(planes, 128, 8)
+        tile_frames(chunk_planes(iq, hop, 47), n, 40)
+
+
+@pytest.mark.parametrize("extra", [-37, 45])
+@pytest.mark.parametrize("sf,ff,p", CHUNK_CASES)
+def test_chunk_walk_frames_equal_frame_signal(sf, ff, p, extra):
+    cfg = _cfg(sf, ff, p)
+    n = cfg.num_samples
+    hop = n // 8
+    lw = live_width(hop)
+    t_len = _need(cfg, HOPS) + extra
+    iq = _iq(cfg, t_len, seed=sf + ff + p)
+    rows = prepass(iq, n, HOPS)
+    assert rows.dtype == torch.bfloat16
+    assert rows.shape == (2, HOPS + 7, lw)
+    a = tile_frames(rows, n, HOPS)
+    assert a.shape == (2, 256, 8 * lw)
+    src = chunk_depths(n)
+    fr = frame_signal(iq, n, hop, HOPS)
+    ref = torch.cat([fr[..., 0], fr[..., 1]], dim=-1).to(torch.bfloat16)
+    live = src >= 0
+    assert torch.equal(a[:, :HOPS, live].view(torch.int16),
+                       ref[..., src[live]].view(torch.int16))
+    assert not a[..., ~live].any() and not a[:, HOPS + 7:].any()
+
+
+@pytest.mark.parametrize("sf,ff,p", CHUNK_CASES)
+def test_chunk_walk_spectra_match_plain(sf, ff, p):
+    """The chunk walk's product and folds within 1e-4 of the plain
+    version (the same bf16 products in another order), and K4's sweep on
+    them equal to peaks_plain, at K 64 too."""
+    cfg = _cfg(sf, ff, p)
+    n = cfg.num_samples
+    iq = _iq(cfg, _need(cfg, HOPS) - 37, seed=20 + sf + ff + p)
+    mod = DirectSpectra(cfg, HOPS)
+    a = tile_frames(prepass(iq, n, HOPS), n, HOPS)
+    got = [x[:, :HOPS] for x in tile_spectra(a, mod.w_kernel)]
+    ref = mod.plain(iq)
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-4 * scale
+    peaks = sweep_peaks(*got, cfg.threshold, 8)
+    assert peaks[3].any()
+    for g, r in zip(peaks, peaks_plain(*got, cfg.threshold, 8)):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("sf,ff", CASES)
@@ -94,7 +163,7 @@ def test_tile_spectra_match_plain(sf, ff):
     n = cfg.num_samples
     iq = _iq(cfg, _need(cfg, HOPS) - 37, seed=10 + sf + ff)
     mod = DirectSpectra(cfg, HOPS)
-    a = tile_frames(chunk_planes(iq, n // 8, HOPS + 7), n, HOPS)
+    a = tile_frames(prepass(iq, n, HOPS), n, HOPS)
     got = [x[:, :HOPS] for x in tile_spectra(a, mod.w)]
     ref = mod.plain(iq)
     scale = max(float(r.abs().max()) for r in ref)

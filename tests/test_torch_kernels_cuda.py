@@ -8,8 +8,9 @@ conftest.py does, and such a machine need not have it).
 
 Shapes beyond the always-on main path: K5 and K2 at fft_factor 16 (the
 wider ring), peak_topm, K1, K2 and K4 at M > 16 (each then runs its
-dense front end and peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples)
-and on ragged frame counts.  K1's, K2's and K4's fused searches keep
+dense front end and peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples),
+K4b / K4 at every hop that is no multiple of 32 samples (8, 16, 48; their
+chunk walk), and on ragged frame counts.  K1's, K2's and K4's fused searches keep
 their peak allocation below one dense [lanes, hops, K] f32 array.  The
 FSM device loop (models/fsm_loop), which has no kernel of its own: its
 replayed CUDA graph leaves every lane's state equal to the same steps run
@@ -40,7 +41,8 @@ import torch
 from gr_lora_tpu_torch import LoraConfig
 from gr_lora_tpu_torch.core.codec import decode, encode
 from gr_lora_tpu_torch.models.modulator import modulate
-from gr_lora_tpu_torch.models.pyramid import num_hops_for, pyramid_demodulate
+from gr_lora_tpu_torch.models.pyramid import (make_peak_lattice, num_hops_for,
+                                              pyramid_demodulate)
 from gr_lora_tpu_torch.ops.chunk_spectra import ChunkSpectra
 from gr_lora_tpu_torch.ops.cplx import to_ri
 from gr_lora_tpu_torch.ops.direct import DirectPeaks, DirectSpectra
@@ -70,7 +72,7 @@ def dev():
 
 def _cfg(sf, ff=8, p=2):
     return LoraConfig(sf=sf, cr=1, crc=True, ldr=(1 << sf) / 125e3 > 16e-3,
-                      explicit_header=True, payload_len=4, p=p,
+                      explicit_header=sf > 6, payload_len=4, p=p,
                       fft_factor=ff, threshold=5.0)
 
 
@@ -196,13 +198,9 @@ def test_kernel_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):          # M above K
         launch_topm(*(torch.zeros(4, 64, device=dev) for _ in range(3)),
                     5.0, 65)
-    # The direct kernel's limits: hop = n / 8 a multiple of 32 samples (p 1
-    # at SF7 gives 16), max_peaks of the fused search at most 16.
+    # The direct kernel's limit: max_peaks of the fused search at most 16
+    # (it takes every hop: test_direct_kernels_any_hop_match_plain).
     x = torch.zeros((2, 4096, 2), device=dev)
-    for mod in (DirectSpectra(_cfg(7, 8, 1), 16),
-                DirectPeaks(_cfg(7, 8, 1), 16)):
-        with pytest.raises(RuntimeError, match="multiple of 32"):
-            mod.to(dev)(x)
     with pytest.raises(ValueError, match="max_peaks"):
         DirectPeaks(cfg, 16, 17).to(dev).kernel(x)
     # K1's and K2's fused searches take M <= 16 too.
@@ -252,6 +250,31 @@ def test_direct_peaks_kernel_matches_plain(dev, sf, ff):
     compare_peaks(plain, kern, 1e-3, faw=faw, threshold=cfg.threshold)
 
 
+@pytest.mark.parametrize("sf,ff,p", [(6, 8, 2), (6, 1, 2), (6, 8, 1),
+                                     (7, 8, 1), (7, 1, 1), (7, 8, 3)])
+def test_direct_kernels_any_hop_match_plain(dev, sf, ff, p):
+    """K4b and K4 where hop = n / 8 is no multiple of 32 samples (SF6 p 2
+    and SF7 p 1: 16, SF6 p 1: 8, SF7 p 3: 48; K 64 at SF6 ff 1, two column
+    tiles): the chunk walk, each launched once, K4b within 1e-4 of its
+    plain version's largest value, both the plain peaks up to f32 ties."""
+    cfg = _cfg(sf, ff, p)
+    assert (cfg.num_samples // 8) % 32
+    iq, total = _lanes(cfg, 2, 60 + sf + ff + p)
+    nh = num_hops_for(cfg, total)
+    x = torch.from_numpy(iq).to(dev)
+    spec = DirectSpectra(cfg, nh).to(dev)
+    kern = spec(x)
+    assert spec.launches == 1 and not spec.plane_walk
+    plain = spec.plain(x)
+    _dense_close(kern, plain, 1e-4)
+    mod = DirectPeaks(cfg, nh, 8).to(dev)
+    got = mod(x)
+    assert mod.launches == 1 and mod.front.launches == 0
+    ref = mod.plain(x)
+    assert ref[3].any()
+    compare_peaks(ref, got, 1e-3, faw=plain[1], threshold=cfg.threshold)
+
+
 @pytest.mark.parametrize("m", [17, 32, 64])
 def test_direct_peaks_large_m_match_plain(dev, m):
     """K4 beyond its fused search's 16: K4b then peak_topm, counted as a
@@ -272,7 +295,8 @@ def test_direct_peaks_large_m_match_plain(dev, m):
 @pytest.mark.parametrize("cls", [RdftSpectra, ChunkSpectra])
 @pytest.mark.parametrize("ff", [8, 1])
 def test_dense_kernels_p1_match_plain(dev, cls, ff):
-    """K3 and K6 at SF7 p 1: n 128, hop 16 samples (K4b refuses it)."""
+    """K3 and K6 at SF7 p 1: n 128, hop 16 samples (K4b and K4 there:
+    test_direct_kernels_any_hop_match_plain)."""
     cfg = _cfg(7, ff, 1)
     iq, total = _lanes(cfg, 3, 30 + ff)
     mod = cls(cfg, num_hops_for(cfg, total)).to(dev)
@@ -323,12 +347,13 @@ def test_rdft_kernels_ragged_frames(dev, sf, ff):
     compare_peaks(ref, mod(x), 1e-3, faw=plain[1], threshold=cfg.threshold)
 
 
-@pytest.mark.parametrize("sf,ff", [(7, 2), (8, 8)])
+@pytest.mark.parametrize("sf,ff", [(7, 2), (8, 8), (6, 8)])
 def test_direct_kernels_ragged_frames(dev, sf, ff):
     """K4b and K4 on a frame count that is no multiple of the 128-frame
     tile, from a stream whose length is no multiple of hop and shorter
     than the frames need (zero-padded): K4b within 1e-4 of its plain
-    version with zero spectra on the padded tail, K4 the plain peaks."""
+    version with zero spectra on the padded tail, K4 the plain peaks (SF6:
+    hop 16, the chunk walk)."""
     cfg = _cfg(sf, ff)
     iq, total = _lanes(cfg, 2, sf + 20)
     hop = cfg.num_samples // 8
@@ -595,8 +620,8 @@ def test_sic_fused_recovers_masked_packet_on_card(dev):
     iq = np.zeros(off2 + len(p2) + 12 * n, np.complex64)
     iq[1000:1000 + len(p1)] += (0.2 * p1).astype(np.complex64)
     iq[off2:off2 + len(p2)] += (0.04 * p2).astype(np.complex64)
-    lat = sic.lattice(cfg, num_hops_for(cfg, len(iq)), 16, "fused", None,
-                      dev)
+    lat = make_peak_lattice(cfg, num_hops_for(cfg, len(iq)), 16, "fused",
+                            dev)
     k1 = [m for m in lat.modules() if isinstance(m, RdftPeaks)]
     assert k1
     for m in k1:

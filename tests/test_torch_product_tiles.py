@@ -2,10 +2,10 @@
 models of csrc/direct_spectra.cu ``grl_chunk_spectra`` and
 csrc/rdft_spectra.cu) against the plain versions.
 
-- K6's kernel weights are the component weights' bf16 values under a
-  permutation (chunk-layout rows r w + c -> r lw + c, the pad rows
-  dropped, columns into K4b's 16-bin interleave), and so equal K4b's
-  ``direct_weights`` row for row, bit for bit.
+- K6's kernel weights (``ops/direct.chunk_weights``, K4b's
+  ``direct_weights`` in chunk-row order) are the component weights' bf16
+  values under a permutation (chunk-layout rows r w + c -> r lw + c, the
+  pad rows dropped, columns into K4b's 16-bin interleave), bit for bit.
 - K6's A tiles, loaded as the kernel's TMA boxes from the bf16 chunk rows
   (never from the pad columns), are the plain version's bf16 frames; the
   folds through wgmma's accumulator mapping are within 1e-4 of
@@ -26,14 +26,16 @@ from gr_lora_tpu_torch import LoraConfig
 from gr_lora_tpu_torch.ops import chunk_spectra as cs
 from gr_lora_tpu_torch.ops import rdft_spectra as rs
 from gr_lora_tpu_torch.ops.dechirp import frame_signal
-from gr_lora_tpu_torch.ops.direct import direct_weights, tile_spectra
+from gr_lora_tpu_torch.ops.direct import (chunk_weights, direct_weights,
+                                          tile_spectra)
 
 HOPS = 150                      # two K6 frame tiles and three K3 ones
 
 
 def _cfg(sf, ff, p=2):
-    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False, explicit_header=True,
-                      payload_len=4, p=p, fft_factor=ff, threshold=5.0)
+    return LoraConfig(sf=sf, cr=1, crc=True, ldr=False,
+                      explicit_header=sf > 6, payload_len=4, p=p,
+                      fft_factor=ff, threshold=5.0)
 
 
 def _iq(cfg, hops, extra, seed):
@@ -57,14 +59,17 @@ def _close(got, ref, rtol=1e-4):
         assert float((g - r).abs().max()) <= rtol * scale
 
 
-@pytest.mark.parametrize("sf,ff,p", [(7, 2, 2), (7, 8, 1), (8, 8, 2)])
+@pytest.mark.parametrize("sf,ff,p", [(7, 2, 2), (7, 8, 1), (8, 8, 2),
+                                     (6, 1, 1), (6, 8, 2), (7, 1, 3)])
 def test_chunk_kernel_weights_are_a_permutation(sf, ff, p):
+    """At hops 32, 16, 64, 8, 16 and 48: the chunk walk's W of K6, and of
+    K4b / K4 where the hop is no multiple of 32."""
     cfg = _cfg(sf, ff, p)
     n = cfg.num_samples
     hop, beta = n // 8, float(cfg.beta)
     w, lw = cs.row_width(hop), cs.live_width(hop)
     k = cfg.bin_size
-    got = cs.kernel_weights(sf, p, ff, beta)
+    got = chunk_weights(sf, p, ff, beta)
     assert got.dtype == torch.bfloat16 and got.shape == (8 * lw, 8 * k)
     cw = cs.component_weights(sf, p, ff, beta)
     # Row r lw + c, column 128 g + 32 comp + 16 j + b holds matrix

@@ -80,14 +80,15 @@ def test_check_still_raises_on_pools(kwargs):
     walk = ops.TrackerWalk(CFG, 8, **kwargs)
     z = torch.zeros((2, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="pools of at most"):
-        walk.check(walk.init_state(2), z, z.float(), z.float(), z.bool())
+        walk.check(walk.init_state(2, "cpu"), z, z.float(), z.float(),
+                   z.bool())
 
 
 def test_check_still_raises_on_the_lattice():
     """check() refuses a lattice wider than 64 peaks and, for the card's
     kernel, tensors that are not CUDA tensors of the kernel's types."""
     walk = ops.TrackerWalk(CFG, 8)
-    st = walk.init_state(2)
+    st = walk.init_state(2, "cpu")
     wide = torch.zeros((2, 4, 65), dtype=torch.int32)
     with pytest.raises(ValueError, match="lattice must be"):
         walk.check(st, wide, wide.float(), wide.float(), wide.bool())
@@ -100,7 +101,7 @@ def test_cpu_process_counts_no_launch():
     """On CPU tensors process runs the plain walk: neither instance's
     launch count moves."""
     walk = ops.TrackerWalk(CFG, 8, track_pool=256, split_repeats=True)
-    st = walk.init_state(1)
+    st = walk.init_state(1, "cpu")
     z = torch.zeros((1, 3, 8), dtype=torch.int32)
     before = (ops.launches, ops.global_launches)
     walk.process(st, z, z.float(), z.float(), z.bool())

@@ -251,7 +251,7 @@ def _walk_blocks(lib, walk, lat, cuts, instance=None):
     carried across) through the emulated kernel and the plain walk; the
     two states after."""
     c = lat[0].shape[0]
-    kern, plain = walk.init_state(c), walk.init_state(c)
+    kern, plain = walk.init_state(c, "cpu"), walk.init_state(c, "cpu")
     edges = [0, *cuts, lat[0].shape[1]]
     for lo, hi in zip(edges, edges[1:]):
         blk = [x[:, lo:hi].contiguous() for x in lat]
@@ -301,7 +301,7 @@ def test_emulated_large_pools_take_global(emulated):
     kern, plain = _walk_blocks(emulated, walk, lat, [lat[0].shape[1] // 2])
     _same_state(kern, plain)
     assert int(kern["o_count"].min()) >= 1
-    st = walk.init_state(3)
+    st = walk.init_state(3, "cpu")
     assert _run(emulated, walk, st, *lat, instance="shared") != 0
 
 
@@ -409,7 +409,7 @@ def test_emulated_shared_memory_is_the_rule(emulated, pools, m):
     z = torch.zeros((1, 3, m), dtype=torch.int32)
     flush = (z, z.float(), z.float(), z.bool())
     for inst in ("global", "shared"):
-        st = walk.init_state(1)
+        st = walk.init_state(1, "cpu")
         err = _run(emulated, walk, st, *flush, instance=inst)
         want = walk.shared_bytes(m, inst)
         if want > MAX_SHARED:

@@ -51,6 +51,32 @@ def test_chirp_tables_and_symbol_chirp(sf, p):
                               jchirp.symbol_chirp(sym, sf, p))
 
 
+@pytest.mark.parametrize("sf", range(6, 13))
+def test_mod_reference_tables(sf):
+    """The accumulator-form modulator tables: the same values and dtype."""
+    ours = tchirp.mod_reference_tables(sf)
+    for a, b in zip(ours, jchirp.mod_reference_tables(sf)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("start", [0, 7, 100])
+def test_frame_signal_start(start):
+    """frame_signal(start=) against the JAX function, in range (the JAX
+    gather clamps past the end, the port zero-pads: no frame reaches it
+    here)."""
+    from gr_lora_tpu.ops.dechirp import frame_signal as jframe
+    from gr_lora_tpu_torch.ops.dechirp import frame_signal as tframe
+
+    iq = np.random.default_rng(start).standard_normal((1000, 2)) \
+        .astype(np.float32)
+    ours = tframe(torch.from_numpy(iq), 64, 8, 100, start=start)
+    ref = np.asarray(jframe(jnp.asarray(iq), 64, 8, 100, start=start))
+    assert np.array_equal(ours.numpy(), ref)
+    if start:
+        assert torch.equal(ours, tframe(torch.from_numpy(iq[start:]), 64, 8,
+                                        100))
+
+
 @pytest.mark.parametrize("sf,p", GRID)
 def test_modulate_and_packet_duration(sf, p):
     jcfg, cfg = _cfg(sf, p)
