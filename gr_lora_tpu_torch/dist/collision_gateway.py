@@ -50,7 +50,6 @@ rank's rows; ``scanned_samples`` counts the rank's own.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -71,6 +70,7 @@ from ..models.sic import sic_demodulate
 from ..ops.cplx import to_ri
 from ..ops.dechirp import down_peak, up_peak
 from ..pipeline.device_ring import DeviceRing
+from ..trace import Recorder, traced_call
 from .mesh import ShardGrid
 from .pyramid_gateway import (GatewayPacket, _pack_peaks, _PyTrackerBank,
                               _unpack_peaks)
@@ -248,12 +248,16 @@ class TriggeredPyramidGateway:
         self._base = -history                # abs index of span offset 0
         self._scans: dict = {}
         self._lattices: dict = {}
-        #: Wall split: ingest = host->device upload; scan = dense
+        #: Spans of each feed and flush, off until turned on
+        #: (``recorder.on = True``; gr_lora_tpu_torch/trace.py).
+        self.recorder = Recorder(self.device, totals=(
+            "ingest", "scan", "lattice", "tracker", "decode", "sic"))
+        #: Wall split, the host seconds of the spans ``lora.gw.<key>``,
+        #: kept on or off: ingest = host->device upload; scan = dense
         #: detection incl. its host copy; lattice = window gather, peak
         #: lattice and the packed-peak host copy; tracker / decode = host;
         #: sic = the windows' host copy and models/sic.sic_demodulate.
-        self.wall = {"ingest": 0.0, "scan": 0.0, "lattice": 0.0,
-                     "tracker": 0.0, "decode": 0.0, "sic": 0.0}
+        self.wall = self.recorder.totals
         #: Samples dispatched to the pyramid lattice (occupancy metric;
         #: includes window overlap) vs samples scanned.
         self.dispatched_samples = 0
@@ -372,6 +376,7 @@ class TriggeredPyramidGateway:
         return self._lattices[sf]
 
     # -- streaming --------------------------------------------------------
+    @traced_call("lora.gw.feed")
     def feed(self, iq) -> list[GatewayPacket]:
         """``iq``: [channels, T, 2] float32 (or [channels, T] complex) —
         a host ndarray (uploaded once; shows in wall['ingest']) or a
@@ -389,15 +394,17 @@ class TriggeredPyramidGateway:
         if self._rows is not None:                  # the rank's own rows
             iq = iq[self._rows.to(iq.device)] \
                 if isinstance(iq, torch.Tensor) else iq[self._rows.numpy()]
-        t0 = time.perf_counter()
-        self._ring.append(iq)
-        if not isinstance(iq, torch.Tensor):
-            self._ring.sync()
-            self.wall["ingest"] += time.perf_counter() - t0
+        if isinstance(iq, torch.Tensor):
+            self._ring.append(iq)
+        else:
+            with self.recorder.span("lora.gw.ingest", key="ingest"):
+                self._ring.append(iq)
+                self._ring.sync()
         out = self._process()
         self._trim()
         return out
 
+    @traced_call("lora.gw.flush")
     def flush(self) -> list[GatewayPacket]:
         """Zero-pad so every pending window and scan chunk completes."""
         pad = max((self._win_samples(st) + st.lead
@@ -416,13 +423,12 @@ class TriggeredPyramidGateway:
         out: list[GatewayPacket] = []
         # Every SF's scan chunks are queued first, then their (tiny)
         # detections come to the host and turn into events.
-        t0 = time.perf_counter()
-        launched = []                        # (st, chunk_start, outs)
-        for st in self.sf_states.values():
-            launched += self._scan_launch(st, end)
-        fetched = [tuple(x.cpu().numpy() for x in outs)
-                   for _, _, outs in launched]
-        self.wall["scan"] += time.perf_counter() - t0
+        with self.recorder.span("lora.gw.scan", key="scan"):
+            launched = []                    # (st, chunk_start, outs)
+            for st in self.sf_states.values():
+                launched += self._scan_launch(st, end)
+            fetched = [tuple(x.cpu().numpy() for x in outs)
+                       for _, _, outs in launched]
         for (st, start, _), res in zip(launched, fetched):
             self._scan_collect(st, start, res)
         for sf, st in self.sf_states.items():
@@ -487,32 +493,29 @@ class TriggeredPyramidGateway:
             chs[i] = ch
             los[i] = pos - st.lead - self._base
             st.dispatched.append((ch, pos))
-        t0 = time.perf_counter()
-        slices = self._ring.gather(chs, los, win)
-        self.dispatched_samples += len(events) * win
-        if self._device_mode:
-            results = self._track_on_device(st, self.lattice(sf)(slices))
-            self.wall["lattice"] += time.perf_counter() - t0
-            results = self._maybe_sic(st, events, results, slices)
-            return self._emit(st, events, results, time.perf_counter())
-        packed = _pack_peaks(self.lattice(sf)(slices)).cpu().numpy()
-        t1 = time.perf_counter()
-        self.wall["lattice"] += t1 - t0
-
-        bins, h, hs, valid = _unpack_peaks(packed)
-        # Fresh tracker bank per batch (windows are self-contained); the
-        # flush is host-only empty hops.
-        bank = self._bank(st.cfg, eb, grace=self.grace,
-                          split_repeats=self._split_repeats)
-        bank.feed(bins, h, hs, valid)
-        z = np.zeros((eb, bank.flush_hops() + self.grace, self.max_peaks),
-                     np.float32)
-        bank.feed(z.astype(np.int32), z, z, z.astype(bool))
-        results = bank.drain()
-        t2 = time.perf_counter()
-        self.wall["tracker"] += t2 - t1
+        rec = self.recorder
+        with rec.span("lora.gw.lattice", sf=sf, key="lattice"):
+            slices = self._ring.gather(chs, los, win)
+            self.dispatched_samples += len(events) * win
+            if self._device_mode:
+                results = self._track_on_device(st,
+                                                self.lattice(sf)(slices))
+            else:
+                packed = _pack_peaks(self.lattice(sf)(slices)).cpu().numpy()
+        if not self._device_mode:
+            with rec.span("lora.gw.tracker", sf=sf, key="tracker"):
+                bins, h, hs, valid = _unpack_peaks(packed)
+                # Fresh tracker bank per batch (windows are
+                # self-contained); the flush is host-only empty hops.
+                bank = self._bank(st.cfg, eb, grace=self.grace,
+                                  split_repeats=self._split_repeats)
+                bank.feed(bins, h, hs, valid)
+                z = np.zeros((eb, bank.flush_hops() + self.grace,
+                              self.max_peaks), np.float32)
+                bank.feed(z.astype(np.int32), z, z, z.astype(bool))
+                results = bank.drain()
         results = self._maybe_sic(st, events, results, slices)
-        return self._emit(st, events, results, time.perf_counter())
+        return self._emit(st, events, results)
 
     def _track_on_device(self, st: _SFState, lattice) -> list:
         """A fresh device tracker state per batch (windows are
@@ -546,50 +549,52 @@ class TriggeredPyramidGateway:
         free.  The qualifying windows come to the host in one copy."""
         if not self._sic or not self._decode:
             return results
-        t0 = time.perf_counter()
         by_lane: dict[int, list] = {}
         for i, ts, syms in results:
             by_lane.setdefault(i, []).append((ts, syms))
         lanes = [i for i in range(len(events)) if by_lane.get(i)]
         if not lanes:
             return results
-        idx = torch.as_tensor(lanes, dtype=torch.int64, device=slices.device)
-        wins = slices.index_select(0, idx).cpu().numpy()
-        new = []
-        for i, w in zip(lanes, wins):
-            wiq = (w[..., 0] + 1j * w[..., 1]).astype(np.complex64)
-            pkts = sic_demodulate(
-                wiq, st.cfg, max_peaks=self.max_peaks, backend=self.backend,
-                grace=self.grace, use_native=self._native, fast_align=True,
-                lattice_block_hops=self._lattice_block_hops(st),
-                split_repeats=self._split_repeats, known=by_lane[i],
-                residual_gate=self._sic_gate, device=self.device)
-            self.sic_windows += 1
-            new += [(i, int(q.position), np.asarray(q.symbols, np.uint16))
-                    for q in pkts]
-        self.wall["sic"] += time.perf_counter() - t0
+        with self.recorder.span("lora.gw.sic", sf=st.cfg.sf, key="sic"):
+            idx = torch.as_tensor(lanes, dtype=torch.int64,
+                                  device=slices.device)
+            wins = slices.index_select(0, idx).cpu().numpy()
+            new = []
+            for i, w in zip(lanes, wins):
+                wiq = (w[..., 0] + 1j * w[..., 1]).astype(np.complex64)
+                pkts = sic_demodulate(
+                    wiq, st.cfg, max_peaks=self.max_peaks,
+                    backend=self.backend, grace=self.grace,
+                    use_native=self._native, fast_align=True,
+                    lattice_block_hops=self._lattice_block_hops(st),
+                    split_repeats=self._split_repeats, known=by_lane[i],
+                    residual_gate=self._sic_gate, device=self.device)
+                self.sic_windows += 1
+                new += [(i, int(q.position),
+                         np.asarray(q.symbols, np.uint16)) for q in pkts]
         return new
 
-    def _emit(self, st: _SFState, events, results,
-              t2: float) -> list[GatewayPacket]:
+    def _emit(self, st: _SFState, events, results) -> list[GatewayPacket]:
         n = st.cfg.num_samples
         out: list[GatewayPacket] = []
-        for i, ts, syms in results:
-            if i >= len(events):
-                continue
-            ch, pos = events[i]
-            abs_pos = pos - st.lead + int(ts)
-            # Cross-window dedupe: the same packet decodes in every window
-            # that covers it; positions agree to within a couple symbols.
-            key = (ch, syms.tobytes())
-            last = st.recent.get(key)
-            if last is not None and abs(abs_pos - last) < 4 * n:
-                continue
-            st.recent[key] = abs_pos
-            res = decode(syms, st.cfg) if self._decode else None
-            out.append(GatewayPacket(self._own_channels[ch], syms, res,
-                                     abs_pos, st.cfg.sf))
-        self.wall["decode"] += time.perf_counter() - t2
+        with self.recorder.span("lora.gw.decode", sf=st.cfg.sf,
+                                key="decode"):
+            for i, ts, syms in results:
+                if i >= len(events):
+                    continue
+                ch, pos = events[i]
+                abs_pos = pos - st.lead + int(ts)
+                # Cross-window dedupe: the same packet decodes in every
+                # window that covers it; positions agree to within a
+                # couple symbols.
+                key = (ch, syms.tobytes())
+                last = st.recent.get(key)
+                if last is not None and abs(abs_pos - last) < 4 * n:
+                    continue
+                st.recent[key] = abs_pos
+                res = decode(syms, st.cfg) if self._decode else None
+                out.append(GatewayPacket(self._own_channels[ch], syms, res,
+                                         abs_pos, st.cfg.sf))
         if len(st.recent) > 4096:      # bound the dedupe memory
             cutoff = self._base
             st.recent = {k: v for k, v in st.recent.items() if v >= cutoff}

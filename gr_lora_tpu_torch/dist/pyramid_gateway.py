@@ -51,7 +51,6 @@ here: torch has no full uint32).
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -67,6 +66,7 @@ from ..models.device_tracker import (counter_totals, flush_hops,
                                      make_channel_tracker_plan)
 from ..models.pyramid import PyramidTracker, peak_lattice_fn, step_lattice
 from ..ops.cplx import to_ri
+from ..trace import Recorder, traced_call
 from .mesh import ShardGrid
 
 
@@ -167,15 +167,16 @@ class PyramidGateway:
     ``[channels, T]``, or a tensor — one already on ``device`` is not
     copied through the host) in arbitrary chunk sizes and returns
     finished packets; ``flush()`` drains.  ``wall`` splits the host's
-    time: dispatch = upload + kernel launches, fetch = waiting for the
-    card and unpacking (with ``tracker="device"``: the packet counts and
-    the finished packets), tracker = tracker bank walk (0 with
-    ``tracker="device"``), decode = codec.  ``device_pools`` sizes the
-    device tracker's pools (models/device_tracker).  With ``mesh`` (a
-    ``dist/mesh.ShardGrid``; module docstring) the gateway runs on the
-    grid's slots of this rank: ``feed`` takes ``ingest_channels``
-    channels and returns the packets of the ``local_channels`` it
-    tracks."""
+    time, from the spans of ``recorder`` (on or off): dispatch = upload
+    (``lora.gw.ingest``) + kernel launches (``lora.gw.dispatch``), fetch
+    = waiting for the card and unpacking (with ``tracker="device"``: the
+    packet counts and the finished packets), tracker = tracker bank walk
+    (0 with ``tracker="device"``), decode = codec.  ``device_pools``
+    sizes the device tracker's pools (models/device_tracker).  With
+    ``mesh`` (a ``dist/mesh.ShardGrid``; module docstring) the gateway
+    runs on the grid's slots of this rank: ``feed`` takes
+    ``ingest_channels`` channels and returns the packets of the
+    ``local_channels`` it tracks."""
 
     def __init__(self, cfg: LoraConfig, channels: int,
                  block_hops: int = 1024, max_peaks: int = 16,
@@ -248,8 +249,12 @@ class PyramidGateway:
         self._host = [None, None]
         self._slot = 0
         self._inflight = None
-        self.wall = {"dispatch": 0.0, "fetch": 0.0, "tracker": 0.0,
-                     "decode": 0.0}
+        #: Spans of each feed and flush, off until turned on
+        #: (``recorder.on = True``; gr_lora_tpu_torch/trace.py); ``wall``
+        #: holds the host seconds of the spans ``lora.gw.<key>``.
+        self.recorder = Recorder(self.device, totals=(
+            "dispatch", "fetch", "tracker", "decode"))
+        self.wall = self.recorder.totals
 
     def wall_reset(self) -> dict:
         prev = dict(self.wall)
@@ -273,11 +278,12 @@ class PyramidGateway:
             return x.pin_memory().to(self.device, non_blocking=True)
 
     @torch.no_grad()
+    @traced_call("lora.gw.feed")
     def feed(self, iq) -> list[GatewayPacket]:
         """Consume IQ and return finished packets."""
-        t0 = time.perf_counter()
-        x = self._upload(iq)
-        self.wall["dispatch"] += time.perf_counter() - t0
+        rec = self.recorder
+        with rec.span("lora.gw.ingest", key="dispatch"):
+            x = self._upload(iq)
         need = self._block_len() + self._halo
         out: list[GatewayPacket] = []
         with torch.cuda.stream(self._stream):
@@ -290,9 +296,8 @@ class PyramidGateway:
             torch.cuda.current_stream(self.device).wait_event(appended)
         with torch.cuda.stream(self._stream):
             while buf.shape[1] >= need:
-                t0 = time.perf_counter()
-                inflight = self._dispatch(buf[:, :need])
-                self.wall["dispatch"] += time.perf_counter() - t0
+                with rec.span("lora.gw.dispatch", key="dispatch"):
+                    inflight = self._dispatch(buf[:, :need])
                 out += self._drain_inflight()   # previous block, overlapped
                 self._inflight = inflight
                 buf = buf[:, self._block_len():]
@@ -328,60 +333,58 @@ class PyramidGateway:
             return []
         if self._device_mode:
             return self._drain_device()
-        t0 = time.perf_counter()
-        host, done = self._inflight
-        self._inflight = None
-        if done is not None:
-            done.synchronize()
-        raw = host.numpy()
-        self.fetched_bytes += raw.nbytes
-        bins, h, hs, valid = _unpack_peaks(raw)
-        t1 = time.perf_counter()
-        self.wall["fetch"] += t1 - t0
-        self.trackers.feed(bins, h, hs, valid)
-        self.wall["tracker"] += time.perf_counter() - t1
+        rec = self.recorder
+        with rec.span("lora.gw.fetch", key="fetch"):
+            host, done = self._inflight
+            self._inflight = None
+            if done is not None:
+                done.synchronize()
+            raw = host.numpy()
+            self.fetched_bytes += raw.nbytes
+            bins, h, hs, valid = _unpack_peaks(raw)
+        with rec.span("lora.gw.tracker", key="tracker"):
+            self.trackers.feed(bins, h, hs, valid)
         return self._collect()
 
     def _drain_device(self) -> list[GatewayPacket]:
         """Device-tracker drain: wait for the pipelined [C] packet counts
         (4 B a channel, the only per-block copy) and pop the finished
         packets only when one is non-zero."""
-        t0 = time.perf_counter()
-        host, done = self._inflight
-        self._inflight = None
-        if done is not None:
-            done.synchronize()
-        hint = host.numpy()
-        self.fetched_bytes += hint.nbytes
-        if not hint.any():
-            self.wall["fetch"] += time.perf_counter() - t0
-            return []
-        with torch.cuda.stream(self._stream):
-            self._dev_states, pool = self._dev_pop(self._dev_states)
-        cnt, o_len, o_pos, o_syms = pool
-        self.fetched_bytes += sum(a.nbytes for a in pool)
-        t1 = time.perf_counter()
-        self.wall["fetch"] += t1 - t0
+        rec = self.recorder
+        with rec.span("lora.gw.fetch", key="fetch"):
+            host, done = self._inflight
+            self._inflight = None
+            if done is not None:
+                done.synchronize()
+            hint = host.numpy()
+            self.fetched_bytes += hint.nbytes
+            if not hint.any():
+                return []
+            with torch.cuda.stream(self._stream):
+                self._dev_states, pool = self._dev_pop(self._dev_states)
+            cnt, o_len, o_pos, o_syms = pool
+            self.fetched_bytes += sum(a.nbytes for a in pool)
         out = []
-        for ch in range(self.local_channels):
-            for i in range(int(cnt[ch])):
-                syms = o_syms[ch, i, :o_len[ch, i]].astype(np.uint16)
-                res = decode(syms, self.cfg) if self._decode else None
-                out.append(GatewayPacket(ch + self._ch_offset, syms, res,
-                                         int(o_pos[ch, i]), self.cfg.sf))
-        self.wall["decode"] += time.perf_counter() - t1
+        with rec.span("lora.gw.decode", key="decode"):
+            for ch in range(self.local_channels):
+                for i in range(int(cnt[ch])):
+                    syms = o_syms[ch, i, :o_len[ch, i]].astype(np.uint16)
+                    res = decode(syms, self.cfg) if self._decode else None
+                    out.append(GatewayPacket(ch + self._ch_offset, syms,
+                                             res, int(o_pos[ch, i]),
+                                             self.cfg.sf))
         return out
 
     def _collect(self) -> list[GatewayPacket]:
         out = []
-        t0 = time.perf_counter()
-        for ch, pos, syms in self.trackers.drain():
-            res = decode(syms, self.cfg) if self._decode else None
-            out.append(GatewayPacket(ch + self._ch_offset, syms, res, pos,
-                                     self.cfg.sf))
-        self.wall["decode"] += time.perf_counter() - t0
+        with self.recorder.span("lora.gw.decode", key="decode"):
+            for ch, pos, syms in self.trackers.drain():
+                res = decode(syms, self.cfg) if self._decode else None
+                out.append(GatewayPacket(ch + self._ch_offset, syms, res,
+                                         pos, self.cfg.sf))
         return out
 
+    @traced_call("lora.gw.flush")
     def flush(self) -> list[GatewayPacket]:
         """Zero-pad to whole blocks and expire every live track/packet."""
         fh = flush_hops(self._grace) if self._device_mode \

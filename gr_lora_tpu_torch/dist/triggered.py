@@ -27,9 +27,11 @@ from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
 from ..device import upload
 from ..models.demodulator import demod_fn, max_packet_symbols
+from ..models.fsm_loop import STEPS
 from ..models.modulator import NUM_PREAMBLE_CHIRPS, packet_duration
 from ..ops.cplx import cmag
 from ..ops.dechirp import up_plan
+from ..trace import Recorder, traced_call
 
 
 def device_feed(iq, device: torch.device) -> torch.Tensor:
@@ -140,6 +142,9 @@ class TriggeredReceiver:
         self.dropped_packets = 0
         #: Event windows demodulated, over all calls.
         self.events = 0
+        #: Spans and counters of each call, off until turned on
+        #: (``recorder.on = True``; gr_lora_tpu_torch/trace.py).
+        self.recorder = Recorder(self.device)
 
     def _scan(self, cfg: LoraConfig, num_windows: int) -> PreambleScan:
         key = (cfg.sf, num_windows)
@@ -149,10 +154,13 @@ class TriggeredReceiver:
                 self.snr_gate).to(self.device)
         return self._scans[key]
 
+    @traced_call("lora.rx")
     def __call__(self, iq) -> list[TriggeredPacket]:
         """Packets of iq: complex or [C, T, 2] / [T, 2] float IQ, on the
         host or already on the device."""
-        diq = device_feed(iq, self.device)      # crosses to the device ONCE;
+        rec = self.recorder
+        with rec.span("lora.rx.upload", device=True):
+            diq = device_feed(iq, self.device)  # crosses to the device ONCE;
         c, t = diq.shape[0], diq.shape[1]       # every SF scans that copy
         out: list[TriggeredPacket] = []
         for sf, cfg in self.cfgs.items():
@@ -160,8 +168,9 @@ class TriggeredReceiver:
             nw = t // n
             if nw < REQUIRED_PREAMBLE_CHIRPS + 1:
                 continue
-            starts, valid, nhits = (x.cpu().numpy()
-                                    for x in self._scan(cfg, nw)(diq))
+            with rec.span("lora.rx.scan", device=True, sf=sf):
+                scanned = self._scan(cfg, nw)(diq)
+            starts, valid, nhits = (_fetch(rec, x, sf) for x in scanned)
             self.dropped_events += int(
                 np.sum(np.maximum(nhits - self.max_events, 0)))
             win = min(scan_window(cfg), t)
@@ -170,21 +179,22 @@ class TriggeredReceiver:
             # inside one window (they all demodulate from the same slice;
             # the output dedupe below collapses cross-window repeats).
             suppress = (NUM_PREAMBLE_CHIRPS + 4) * n
-            events = []       # (channel, sample_start)
-            for ch in range(c):
-                seen: list[int] = []
-                for e in sorted(range(starts.shape[1]),
-                                key=lambda e: int(starts[ch, e])):
-                    if not valid[ch, e]:
-                        continue
-                    pos = int(starts[ch, e]) * n
-                    if any(abs(pos - s) < suppress for s in seen):
-                        continue
-                    seen.append(pos)
-                    # Anchor the slice at ITS trigger (zero-pad past the
-                    # capture end) so the triggered packet is always the
-                    # first the FSM meets.
-                    events.append((ch, max(pos - 2 * n, 0)))
+            with rec.span("lora.rx.events", sf=sf):
+                events = []       # (channel, sample_start)
+                for ch in range(c):
+                    seen: list[int] = []
+                    for e in sorted(range(starts.shape[1]),
+                                    key=lambda e: int(starts[ch, e])):
+                        if not valid[ch, e]:
+                            continue
+                        pos = int(starts[ch, e]) * n
+                        if any(abs(pos - s) < suppress for s in seen):
+                            continue
+                        seen.append(pos)
+                        # Anchor the slice at ITS trigger (zero-pad past
+                        # the capture end) so the triggered packet is
+                        # always the first the FSM meets.
+                        events.append((ch, max(pos - 2 * n, 0)))
             if not events:
                 continue
             self.events += len(events)
@@ -192,37 +202,53 @@ class TriggeredReceiver:
             # find no preamble), so a receiver captures one FSM graph per
             # SF and power of two, not one per event count.
             lanes = 1 << (len(events) - 1).bit_length()
-            slices = torch.zeros(lanes, win, 2, device=self.device)
-            for i, (ch, s) in enumerate(events):
-                stop = min(s + win, t)
-                slices[i, :stop - s] = diq[ch, s:stop]
-            syms, lens, pos, cnt, dropped, snr = (
-                x.cpu().numpy()
-                for x in demod_fn(cfg, win, 2, self.device)(slices))
+            with rec.span("lora.rx.slices", device=True, sf=sf):
+                slices = torch.zeros(lanes, win, 2, device=self.device)
+                for i, (ch, s) in enumerate(events):
+                    stop = min(s + win, t)
+                    slices[i, :stop - s] = diq[ch, s:stop]
+            demod = demod_fn(cfg, win, 2, self.device)
+            with rec.span("lora.rx.demod", sf=sf):
+                outs = demod(slices)
+            rec.count("events", len(events), sf)
+            rec.count("lanes", lanes, sf)
+            rec.count("replays", demod.loops[lanes].steps // STEPS, sf)
+            syms, lens, pos, cnt, dropped, snr = (_fetch(rec, x, sf)
+                                                  for x in outs)
             self.dropped_packets += int(np.sum(dropped))
-            for i, (ch, s) in enumerate(events):
-                for r in range(int(cnt[i])):
-                    symbols = syms[i, r, :lens[i, r]].astype(np.uint16)
-                    res = decode(symbols, cfg)
-                    if res.ok:
-                        out.append(TriggeredPacket(
-                            ch, sf, s + int(pos[i, r]), symbols, res,
-                            float(snr[i, r])))
+            with rec.span("lora.rx.decode", sf=sf):
+                for i, (ch, s) in enumerate(events):
+                    for r in range(int(cnt[i])):
+                        symbols = syms[i, r, :lens[i, r]].astype(np.uint16)
+                        res = decode(symbols, cfg)
+                        if res.ok:
+                            out.append(TriggeredPacket(
+                                ch, sf, s + int(pos[i, r]), symbols, res,
+                                float(snr[i, r])))
         # Overlapping event windows demodulate shared packets more than
         # once (a packet is first in its own window and later in earlier
         # windows); detection positions agree only to within a symbol or
         # two of window phase, so merge same-(channel, sf, bytes) packets
         # closer than 4 symbols.
-        out.sort(key=lambda p: (p.channel, p.sf, p.position))
-        deduped: list[TriggeredPacket] = []
-        for p in out:
-            n = self.cfgs[p.sf].num_samples
-            if deduped:
-                q = deduped[-1]
-                if (q.channel == p.channel and q.sf == p.sf
-                        and abs(p.position - q.position) < 4 * n
-                        and bytes(q.result.payload) == bytes(p.result.payload)):
-                    continue
-            deduped.append(p)
-        deduped.sort(key=lambda p: (p.channel, p.position))
+        with rec.span("lora.rx.dedupe"):
+            out.sort(key=lambda p: (p.channel, p.sf, p.position))
+            deduped: list[TriggeredPacket] = []
+            for p in out:
+                n = self.cfgs[p.sf].num_samples
+                if deduped:
+                    q = deduped[-1]
+                    if (q.channel == p.channel and q.sf == p.sf
+                            and abs(p.position - q.position) < 4 * n
+                            and bytes(q.result.payload)
+                            == bytes(p.result.payload)):
+                        continue
+                deduped.append(p)
+            deduped.sort(key=lambda p: (p.channel, p.position))
+        rec.count("packets", len(deduped))
         return deduped
+
+
+def _fetch(rec, x: torch.Tensor, sf: int) -> np.ndarray:
+    """One result on the host (a span that waits for the card)."""
+    with rec.span("lora.rx.fetch", sf=sf):
+        return x.cpu().numpy()

@@ -20,6 +20,10 @@ back.  ``graphed`` chooses the route when the loop is built, from its
 device; a loop built with ``graphed=False`` on the card (the eager timing
 in chip_smoke.py, the card tests) runs the very same steps launch by
 launch.
+
+While a receiver's recorder is on (gr_lora_tpu_torch/trace.py), ``run``
+records each replay (``lora.fsm.replay``, a device span) and each host
+check (``lora.fsm.check``) into the call that is running.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from functools import lru_cache
 from typing import Callable, NamedTuple
 
 import torch
+
+from .. import trace
 
 #: Steps between two host checks of "any lane active", and the length of
 #: one captured graph.
@@ -119,16 +125,20 @@ class StepLoop:
         """Load ``state``, step until no lane is active, return the final
         state (tensors of their own, so the next pass may reuse the
         static ones)."""
+        rec = trace.current()
         self._load(state)
         if self.graphed and self.graph is None:
             self._capture()
         self.steps = 0
         while True:
-            if self.graphed:
-                self.graph.replay()
-            else:
-                self._steps()
+            with rec.span("lora.fsm.replay", device=True):
+                if self.graphed:
+                    self.graph.replay()
+                else:
+                    self._steps()
             self.steps += STEPS
-            if not bool(self.active(self.state).any()):
+            with rec.span("lora.fsm.check"):
+                done = not bool(self.active(self.state).any())
+            if done:
                 break
         return type(self.state)(*(x.clone() for x in self.state))

@@ -760,6 +760,40 @@ def test_streaming_demod_on_card_equals_cpu(dev):
     assert [(p, s.tolist()) for p, s in before + after] == runs[1][0]
 
 
+def test_recorder_on_card(dev):
+    """The triggered receiver's recorder on the card (gr_lora_tpu_torch/
+    trace.py): the packets of a call with it on equal those with it off
+    and the CPU's; the device spans lie in order on the call's device
+    timeline, inside its wall; a replay span per counted replay; a second
+    call takes its CUDA events from the pool, making none."""
+    from gr_lora_tpu_torch.dist import TriggeredReceiver
+    from test_torch_trace import BASE, DEVICE_SPANS, _feed, _key
+
+    iq = _feed()
+    ref = TriggeredReceiver(BASE, sfs=(7, 8), device="cpu")(iq)
+    rx = TriggeredReceiver(BASE, sfs=(7, 8), device=dev)
+    x = torch.from_numpy(iq).pin_memory()
+    off = rx(x)
+    rx.recorder.on = True
+    on = rx(x)
+    pool = len(rx.recorder._pool)
+    again = rx(x)
+    assert len(rx.recorder._pool) == pool > 0
+    assert _key(off) == _key(on) == _key(again)
+    assert [k[:4] for k in _key(on)] == [k[:4] for k in _key(ref)]
+    for rec in rx.recorder.records():
+        devs = [s for s in rec["spans"] if s["device_ms"] is not None]
+        assert {s["name"] for s in devs} == DEVICE_SPANS
+        end = 0.0
+        for s in devs:
+            d0, d1 = s["device_ms"]
+            assert end - 1e-3 <= d0 <= d1 <= rec["wall_ms"] + 0.5, s
+            end = d1
+        assert sum(s["name"] == "lora.fsm.replay" for s in devs) == sum(
+            c["value"] for c in rec["counters"] if c["name"] == "replays")
+        assert 0.0 < rec["busy_ms"] < rec["wall_ms"]
+
+
 def _channelize_f64(x, num_channels, fs_in, sample_offset, p=2,
                     spacing=125e3):
     """float64 NumPy evaluation of channelize's packed product and residual
