@@ -79,9 +79,14 @@ the final ``ok`` line):
    (their wall, count and the K1 / K2 launches of SIC's own dense
    passes printed);
 9. fsm     — the FSM receive path, which launches none of the nine
-   kernels (models/demodulator, models/weak, dist/multi_sf,
-   dist/triggered; the per-lane state machine stepped on the card, 32
-   steps a captured CUDA graph): (a) demod_fn batched over 64 channels
+   kernels but the demod machine's step kernels (models/demodulator,
+   models/weak, dist/multi_sf, dist/triggered; the per-lane state machine
+   stepped on the card, 32 steps a captured CUDA graph, the demod
+   machine's step as csrc/fsm_step.cu's fsm_win, fsm_sfd and fsm_update
+   around two cuFFT calls; the profiled passes of (a)-(c) must run each
+   of the three once a step their demod loops took through them, the
+   triggered receiver's steps read from its recorder's
+   ``fsm_kernel_steps``): (a) demod_fn batched over 64 channels
    of bench.py --mode gateway's fixture (SF8, implicit header, payload 6,
    p 2, ff 2, 1024 symbols, noise 0.05): every payload byte-exact with
    its CRC; samples/s over 3 replayed passes, steps a pass, ms a step
@@ -96,7 +101,14 @@ the final ``ok`` line):
    noisy trials of bench.py --mode per's SF8 weak point plus a clean lane
    (which must decode; PER printed), and the loopback at SF7-12, byte-
    exact.  (a)-(c) each profile one pass under torch.profiler (device
-   busy and idle shares, device time by kind of kernel);
+   busy and idle shares, device time by kind of kernel); (f) one step of
+   the demod machine at the benchmark cells' shapes (lorabench's fsm64:
+   SF8 x 128 lanes, SF12 x 16, the triggered receiver's event window):
+   ms a step through the kernels replayed and eager, beside the plain
+   body's replayed and eager, each kernel's device ms a step, launches a
+   step and the device time by kind; the two loops' final states equal;
+   the step's bound from what the function needs and from the current
+   design (``python3 chip_smoke.py --fsm-step`` runs (f) alone);
 10. wideband — the wideband north star, one SDR stream: 64 x 125 kHz
    channels at 8 Msps, 2^25 samples (4.19 s of air), on every channel an
    SF8 collision pair (0.4 / 0.18; channel 1's the golden pair; a drawn
@@ -166,12 +178,15 @@ the final ``ok`` line):
 
 Phases 4-8 and 10-12 each assert what they check and that their kernels
 ran: every launch count is set to 0 just before a phase and read just
-after.  Two lines then give the port's kernels that stand for no TPU
+after; phase 9 counts the step kernels' device records in its profiled
+passes.  Two lines then give the port's kernels that stand for no TPU
 kernel, the dense ``peak_topm`` and the merge: their main-path shapes,
 ms, byte bound, plain and library ms, and launches over phases 4-12.
 The line before the last is a JSON object with every kernel's
 route, source, the TPU kernel it replaces (the tracker walk: the
-``lax.scan`` it stands for), launches, max |delta| against its plain
+``lax.scan`` it stands for; the FSM step kernels: the JAX step's
+``lax.while_loop`` body, their rows phase 9f's with the step's bounds
+beside each kernel's own, their launches 9a-9c's), launches, max |delta| against its plain
 version, times, and the least time the card could take (``bound_ms``:
 the larger of the bytes the function must move over 3.35 TB/s and its
 operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32, from this run's
@@ -185,6 +200,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1742,7 +1758,7 @@ def fsm_gateway_fixture(cfg, channels: int = FSM_CHANNELS):
 
 
 #: Device-time classes of the FSM step's kernels (by kernel name).
-_KINDS = (("cuFFT", ("fft",)), ("gather", ("gather",)),
+_KINDS = (("fsm", ("fsm_",)), ("cuFFT", ("fft",)), ("gather", ("gather",)),
           ("reduce", ("reduce", "argmax")), ("scan", ("scan",)),
           ("copy", ("memcpy", "memset", "copy")))
 
@@ -1753,11 +1769,22 @@ def _kind(name: str) -> str:
                  if any(k in low for k in keys)), "elementwise")
 
 
-def _device_time(prof) -> tuple[float, int, dict]:
+#: The demod machine's step kernels (csrc/fsm_step.cu), in launch order.
+FSM_KERNELS = ("fsm_win", "fsm_sfd", "fsm_update")
+
+
+def _fsm_kernel(name: str) -> str | None:
+    """The FSM_KERNELS entry a device kernel's (mangled) name is, or None."""
+    m = re.search(r"fsm_(win|sfd|update)", name)
+    return f"fsm_{m.group(1)}" if m else None
+
+
+def _device_time(prof, fsm: dict | None = None) -> tuple[float, int, dict]:
     """(busy ms: the union of the device-side intervals, the number of
     device-side records, {kind: ms} by _KINDS) of ``prof``, read from its
     raw trace: a replayed pass records millions of kernels, too many to
-    parse into profiler events."""
+    parse into profiler events.  ``fsm``, where given, gets the records of
+    each FSM_KERNELS kernel added to it."""
     from torch.autograd import DeviceType
 
     starts, ends, kinds, by_kind = [], [], {}, {}
@@ -1769,6 +1796,9 @@ def _device_time(prof) -> tuple[float, int, dict]:
         ends.append(lo + dur)
         kind = kinds.get(name) or kinds.setdefault(name, _kind(name))
         by_kind[kind] = by_kind.get(kind, 0) + dur
+        if fsm is not None and kind == "fsm":
+            key = _fsm_kernel(name)
+            fsm[key] = fsm.get(key, 0) + 1
     if not starts:
         return 0.0, 0, {}
     order = np.argsort(starts, kind="stable")
@@ -1781,9 +1811,11 @@ def _device_time(prof) -> tuple[float, int, dict]:
     return busy / 1e6, len(starts), split
 
 
-def _profiled_pass(run) -> tuple[float, float, dict, float]:
+def _profiled_pass(run, fsm: dict | None = None
+                   ) -> tuple[float, float, dict, float]:
     """(wall s, device busy ms, device ms by kind, seconds the profiler
-    took to stop and be read) of one ``run()`` under torch.profiler."""
+    took to stop and be read) of one ``run()`` under torch.profiler;
+    ``fsm`` as _device_time's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1795,8 +1827,20 @@ def _profiled_pass(run) -> tuple[float, float, dict, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t0 = time.perf_counter()
-    busy, _, split = _device_time(prof)
+    busy, _, split = _device_time(prof, fsm)
     return wall, busy, split, time.perf_counter() - t0
+
+
+def _fsm_main_path(label: str, fsm: dict, steps: int,
+                   launches: dict) -> None:
+    """Fail unless a profiled pass ran each FSM_KERNELS kernel once a step
+    of the ``steps`` (> 0) its demod loops took through the kernels (read
+    from the loops, or the receiver's recorder); add them to
+    ``launches``."""
+    if steps <= 0 or any(fsm.get(k, 0) != steps for k in FSM_KERNELS):
+        fail(f"FSM {label}: {steps} kernel steps, device records {fsm}")
+    for k in FSM_KERNELS:
+        launches[k] = launches.get(k, 0) + steps
 
 
 def _split_txt(split: dict) -> str:
@@ -1810,12 +1854,13 @@ def _lane_packets(outs, lane: int) -> list:
             for r in range(int(cnt[lane]))]
 
 
-def fsm_gateway(cfg, dev, card: str):
+def fsm_gateway(cfg, dev, card: str, launches: dict):
     """Phase 9a: demod_fn batched over 64 channels of bench.py --mode
     gateway's fixture.  Every channel's payload must decode byte-exact
     with its CRC.  Prints samples/s over FSM_TIMED replayed passes, the
     steps a pass, ms a step replayed and eager, launches a step, and a
-    profiled pass's busy and idle shares.  Returns (iq, offsets, packet
+    profiled pass's busy and idle shares; that pass must run each step
+    kernel once a step (``_fsm_main_path``).  Returns (iq, offsets, packet
     length, channel 0's packets)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1866,7 +1911,10 @@ def fsm_gateway(cfg, dev, card: str):
         eager._steps()
         torch.cuda.synchronize()
     _, records, _ = _device_time(prof)
-    wall, busy, split, prof_cost = _profiled_pass(lambda: fn(x))
+    fsm = {}
+    wall, busy, split, prof_cost = _profiled_pass(lambda: fn(x), fsm)
+    kernel_steps = fn.loops[channels].kernel_steps
+    _fsm_main_path("9a gateway", fsm, kernel_steps, launches)
     sps = channels * total * FSM_TIMED / sum(secs)
     best = min(secs)
     print(f"fsm gateway {channels}ch SF8 implicit p2 ff2 T={total} "
@@ -1874,7 +1922,8 @@ def fsm_gateway(cfg, dev, card: str):
           f"{channels} first_pass_s={first_s:.4f} (capture included) "
           f"pass_s={[round(s, 4) for s in secs]} samples_per_s={sps:.1f} "
           f"x_realtime_per_channel={sps / channels / 250e3:.3f} "
-          f"steps_per_pass={steps} steps_per_check={STEPS} "
+          f"steps_per_pass={steps} kernel_steps={kernel_steps} "
+          f"(device records {fsm}) steps_per_check={STEPS} "
           f"ms_per_step_replayed={1e3 * best / steps:.4f} "
           f"eager_pass_s={eager_s:.4f} "
           f"ms_per_step_eager={1e3 * eager_s / steps:.4f} "
@@ -1944,7 +1993,7 @@ def _single_slack(singles: dict, t: int) -> dict:
     return slack
 
 
-def fsm_receivers(iq_dev, singles, dev, card: str) -> None:
+def fsm_receivers(iq_dev, singles, dev, card: str, launches: dict) -> None:
     """Phases 9b and 9c: MultiSFReceiver and TriggeredReceiver over phase
     4's north-star fixture (its device copy).  TriggeredReceiver must
     decode every single on every channel.  MultiSFReceiver must decode
@@ -1955,11 +2004,16 @@ def fsm_receivers(iq_dev, singles, dev, card: str) -> None:
     packages to that); the singles beyond that reach are printed.  The
     golden collision PDUs they find are printed, not asserted.  Each: a
     first pass (graph captures included), a timed pass that must give the
-    same packets, a profiled pass."""
+    same packets, a profiled pass, which must run each step kernel once a
+    step the demod loops took (``_fsm_main_path``; the triggered
+    receiver's steps from its recorder's ``fsm_kernel_steps``, on for
+    that pass only, which must equal its replays' steps at every SF)."""
     import torch
 
     from gr_lora_tpu_torch.dist import MultiSFReceiver, TriggeredReceiver
     from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS
+    from gr_lora_tpu_torch.trace import summary
 
     channels, t = iq_dev.shape[0], iq_dev.shape[1]
     slack = _single_slack(singles, t)
@@ -1993,7 +2047,27 @@ def fsm_receivers(iq_dev, singles, dev, card: str) -> None:
         wall_s = time.perf_counter() - t0
         if _ok_pdus(again) != got:
             fail(f"FSM {label}: a second pass decoded other packets")
-        prof_s, busy, split, prof_cost = _profiled_pass(lambda: rx(iq_dev))
+        fsm = {}
+        if whole:
+            prof_s, busy, split, prof_cost = _profiled_pass(
+                lambda: rx(iq_dev), fsm)
+            kernel_steps = sum(
+                demod_fn(c, t, rx.max_packets, dev).loops[channels]
+                .kernel_steps for c in rx.cfgs.values())
+        else:
+            rx.recorder.on = True
+            prof_s, busy, split, prof_cost = _profiled_pass(
+                lambda: rx(iq_dev), fsm)
+            rx.recorder.on = False
+            counted = summary(rx.recorder.records())["counters"]
+            by_sf = {k: v for k, v in counted.items()
+                     if k.startswith("fsm_kernel_steps.")}
+            kernel_steps = sum(by_sf.values())
+            for key, v in by_sf.items():
+                replays = counted.get("replays." + key.split(".")[1], 0)
+                if v != replays * STEPS:
+                    fail(f"FSM {label}: {key} {v}, {replays} replays")
+        _fsm_main_path(label, fsm, kernel_steps, launches)
         both = sum({(8, PDU1), (8, PDU2)} <= got.get(c, set())
                    for c in range(channels))
         pdu1 = sum((8, PDU1) in got.get(c, set()) for c in range(channels))
@@ -2004,7 +2078,8 @@ def fsm_receivers(iq_dev, singles, dev, card: str) -> None:
               f"capture's end, symbols of slack: {beyond}) "
               f"collision PDU1 on {pdu1}, PDU2 on {pdu2}, both on {both} "
               f"of {channels} channels (not asserted) {counters} (first "
-              f"pass) "
+              f"pass) kernel_steps={kernel_steps} (device records {fsm}, "
+              f"profiled pass) "
               f"first_pass_s={first_s:.4f} wall_s={wall_s:.4f} "
               f"x_realtime_per_channel={t / 250e3 / wall_s:.3f} "
               f"profiled_pass_s={prof_s:.4f} device_busy_ms={busy:.2f} "
@@ -2078,22 +2153,206 @@ def fsm_weak_loopback(dev, card: str) -> None:
           f"{ {sf: round(s, 3) for sf, s in lb.items()} } s")
 
 
-def fsm_phase(iq_dev, singles, dev, card: str) -> None:
-    """Phase 9: the FSM receive path (no kernel of the nine runs here)."""
+#: Phase 9 (f): the benchmark cells' FSM loops, (SF, lanes): fsm64.collide's
+#: SF8 loop and fsm64.sparse's SF12 one.
+FSM_STEP_SHAPES = ((8, 128), (12, 16))
+
+
+def _fsm_step_case(sf: int, lanes: int, dev):
+    """(config, demod, iq [lanes, window, 2] on ``dev``): fsm64's LoRa
+    settings at ``sf`` and one packet a lane at a seeded place in the
+    triggered receiver's event window, in noise of sigma 0.003."""
+    import torch
+
+    from gr_lora_tpu_torch import LoraConfig
+    from gr_lora_tpu_torch.core.codec import encode
+    from gr_lora_tpu_torch.dist.triggered import scan_window
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from gr_lora_tpu_torch.models.modulator import modulate
+    from gr_lora_tpu_torch.ops.cplx import to_ri
+
+    cfg = LoraConfig(sf=sf, cr=1, crc=True, ldr=sf >= 11,
+                     explicit_header=True, p=2, fft_factor=8, threshold=5.0)
+    n, win = cfg.num_samples, scan_window(cfg)
+    rng = np.random.default_rng(sf)
+    iq = (0.003 * (rng.standard_normal((lanes, win))
+                   + 1j * rng.standard_normal((lanes, win)))).astype(
+                       np.complex64)
+    for i in range(lanes):
+        pkt = 0.15 * modulate(encode(bytes([sf, i % 256, 1, 2]), cfg), cfg,
+                              pad_front=0, pad_back=0)
+        o = 2 * n + int(rng.integers(0, n))
+        iq[i, o:o + len(pkt)] += pkt
+    return cfg, demod_fn(cfg, win, 2, dev), torch.from_numpy(to_ri(iq)).to(
+        dev)
+
+
+#: Per-lane state the FSM step reads and writes whole each step: every
+#: field but the symbol and output slots (written one entry at a time).
+_FSM_SLOTS = ("syms", "out_syms", "out_len", "out_pos", "out_snr")
+
+
+def _fsm_bounds(cfg, lanes: int, state) -> dict:
+    """The least time a step of ``lanes`` lanes could take on the card
+    (``_bound``), for a lane outside S_SFD_SYNC (nearly every lane-step):
+    ``step``: what the function needs — the window read once (8 n B, the
+    chirp once for all lanes) and the per-lane state read and written
+    once; the window's spectrum on the F-point grid as fft_factor zoomed
+    n-point FFTs (5 F log2 n f32 operations, 6 F for the zoom's twiddles),
+    the dechirp (6 n) and the fold and search of its 2 K bins (10 K).
+    ``design``: the current design, three zero-padded F-point FFT rows
+    each read and written once (48 F B, 15 F log2 F operations) besides
+    the window read and the up row written (16 n) and the fold's two
+    bands (16 K).  And each kernel's own bytes: ``fsm_win`` the three
+    words that say a lane is idle, ``fsm_sfd`` the window read and the up
+    row written, ``fsm_update`` the two bands and the state."""
+    n, f, k = cfg.num_samples, cfg.fft_size, cfg.bin_size
+    words = sum(getattr(state, name)[0].numel()
+                * getattr(state, name).element_size()
+                for name in state._fields if name not in _FSM_SLOTS)
+    fold = 10 * k
+    return {
+        "step": _bound(lanes * (8 * n + 2 * words) + 8 * n, f32_ops=lanes * (
+            5 * f * math.log2(n) + 6 * f + 6 * n + fold)),
+        "design": _bound(lanes * (16 * n + 48 * f + 16 * k + 2 * words),
+                         f32_ops=lanes * (15 * f * math.log2(f) + 18 * n
+                                          + fold)),
+        "fsm_win": _bound(lanes * 12),
+        "fsm_sfd": _bound(lanes * (16 * n + 12)),
+        "fsm_update": _bound(lanes * (16 * k + 2 * words)),
+    }
+
+
+def fsm_step_timing(dev, card: str, report: dict | None = None) -> None:
+    """Phase 9f: the demod machine's step at FSM_STEP_SHAPES, through the
+    kernels (csrc/fsm_step.cu around cuFFT) and through the plain body:
+    each loop run whole, replayed as CUDA graphs (ms a step: the run's
+    CUDA-event time over its steps, the least of 3 runs), and 32 steps
+    from the start launch by launch; kernels a step from 32 profiled eager
+    steps; one profiled replayed run of the kernel loop gives the device
+    ms a step of each fsm kernel and of each kind of the rest.  The kernel
+    loop's and the plain loop's final states must be equal (snr within
+    1e-6).  Prints the step's bounds (``_fsm_bounds``); with ``report``,
+    appends each kernel's row at each shape to it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS, StepLoop
+    from gr_lora_tpu_torch.ops import fsm_step
+
+    def timed(run) -> float:
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda.synchronize()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def device_ms(run) -> tuple[dict, int]:
+        """({fsm kernel, or _KINDS kind: device ms}, device records) of
+        run(), profiled."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out, records = {}, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            key = _fsm_kernel(e.name()) or _kind(e.name())
+            out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6
+            records += 1
+        return out, records
+
+    for sf, lanes in FSM_STEP_SHAPES:
+        cfg, fn, x = _fsm_step_case(sf, lanes, dev)
+        n = cfg.num_samples
+        init = fn.init_state(lanes, -fn.pad_front, fn.pad_front, dev)
+        kern = fn.make_loop(lanes)
+        plain = StepLoop(fn.body, init, fn.buf_len, n, fn.max_iters)
+        if kern.kernel is None or plain.kernel is not None:
+            fail(f"FSM step SF{sf}: the loops do not step as asked")
+        replayed, final = {}, {}
+        for name, loop in (("kernel", kern), ("plain", plain)):
+            fn.run(loop, x)                       # capture
+            ms = min(timed(lambda: fn.run(loop, x)) for _ in range(3))
+            replayed[name] = ms / loop.steps
+            final[name] = [t.clone() for t in loop.state]
+        err = 0.0
+        for field, a, b in zip(init._fields, final["plain"],
+                               final["kernel"]):
+            same = torch.allclose(a, b, rtol=1e-6, atol=0.0) \
+                if field in ("snr", "out_snr") else torch.equal(a, b)
+            if not same:
+                fail(f"FSM step SF{sf} x {lanes}: {field} differs")
+            if a.is_floating_point():
+                err = max(err, float((a - b).abs().max()))
+        packets = int(kern.state.out_cnt.clamp(max=2).sum())
+        loops = {"kernel": fn.make_loop(lanes, graphed=False),
+                 "plain": StepLoop(fn.body, init, fn.buf_len, n,
+                                   fn.max_iters, graphed=False)}
+        eager = {}
+        for name, loop in loops.items():
+            loop.iq.copy_(kern.iq)
+            loop._load(init)
+            eager[name] = timed(loop._steps) / STEPS
+        before = fsm_step.launches
+        loops["kernel"]._load(init)
+        _, records = device_ms(loops["kernel"]._steps)
+        launches = (fsm_step.launches - before) / STEPS
+        per, _ = device_ms(lambda: fn.run(kern, x))
+        per_step = {k: round(v / kern.steps, 5) for k, v in sorted(
+            per.items(), key=lambda kv: -kv[1])}
+        bounds = _fsm_bounds(cfg, lanes, kern.state)
+        step_ms = replayed["kernel"]
+        if report is not None:
+            for name in FSM_KERNELS:
+                row = _row(err, per[name] / kern.steps, replayed["plain"],
+                           f"SF{sf} x {lanes} lanes, {kern.steps} steps",
+                           bounds[name], per.get("cuFFT", 0.0) / kern.steps)
+                row.update(step_ms=step_ms, step_bound_ms=bounds["step"][0],
+                           design_bound_ms=bounds["design"][0])
+                report[name].append(row)
+        print(f"fsm step SF{sf} x {lanes} lanes (fsm64: p2 ff8 explicit"
+              f"{' LDR' if cfg.ldr else ''}, window {fn.num_samples_total}) "
+              f"on {card}: steps={kern.steps} packets={packets}/{lanes} "
+              f"states equal; ms_per_step kernel replayed="
+              f"{replayed['kernel']:.5f} eager={eager['kernel']:.5f} | "
+              f"plain replayed={replayed['plain']:.5f} eager="
+              f"{eager['plain']:.5f} (x{replayed['plain'] / replayed['kernel']:.1f}"
+              f" replayed) kernels_per_step={records / STEPS:.1f} (fsm "
+              f"launches {launches:.0f}) "
+              "device_ms_per_step[" + ", ".join(
+                  f"{k} {v:.5f}" for k, v in per_step.items()) + "] "
+              f"max_abs_err={err:.3g} bound_ms_per_step: the function "
+              f"{bounds['step'][0]:.6f} ({bounds['step'][1]}, "
+              f"x{step_ms / bounds['step'][0]:.1f} measured), the design "
+              f"{bounds['design'][0]:.6f} ({bounds['design'][1]}, "
+              f"x{step_ms / bounds['design'][0]:.1f})")
+
+
+def fsm_phase(iq_dev, singles, dev, card: str, report: dict,
+              launches: dict) -> None:
+    """Phase 9: the FSM receive path (no kernel of the nine runs here; the
+    demod machine's step kernels do, counted from 9a-9c into
+    ``launches``, 9f's rows into ``report``)."""
     marks = [time.perf_counter()]
     cfg = fsm_config()
-    iq, offs, plen, ref = fsm_gateway(cfg, dev, card)
+    iq, offs, plen, ref = fsm_gateway(cfg, dev, card, launches)
     marks.append(time.perf_counter())
-    fsm_receivers(iq_dev, singles, dev, card)
+    fsm_receivers(iq_dev, singles, dev, card, launches)
     marks.append(time.perf_counter())
     fsm_streaming(cfg, iq, offs, plen, ref, dev, card)
     marks.append(time.perf_counter())
     fsm_weak_loopback(dev, card)
     marks.append(time.perf_counter())
+    fsm_step_timing(dev, card, report)
+    marks.append(time.perf_counter())
     parts = np.diff(marks)
     print(f"fsm phase 9 total_s={marks[-1] - marks[0]:.2f} (9a "
           f"{parts[0]:.1f}, 9b+9c {parts[1]:.1f}, 9d {parts[2]:.1f}, 9e "
-          f"{parts[3]:.1f})")
+          f"{parts[3]:.1f}, 9f {parts[4]:.1f})")
 
 
 #: Phase 10: the wideband north star — one SDR stream of 64 x 125 kHz
@@ -3759,6 +4018,11 @@ META = {
     "device_tracker_global": ("cuda",
                               "gr_lora_tpu_torch/csrc/device_tracker.cu",
                               "gr_lora_tpu/models/device_tracker.py:85"),
+    # The demod FSM step's XLA ops in a lax.while_loop, not a Pallas
+    # kernel (the body of models/demodulator.py:176's _machine).
+    **{name: ("cuda", "gr_lora_tpu_torch/csrc/fsm_step.cu",
+              "gr_lora_tpu/models/demodulator.py:207")
+       for name in FSM_KERNELS},
 }
 
 
@@ -3767,6 +4031,14 @@ def main() -> None:
 
     if sys.argv[1:2] == ["--nccl-rank"]:       # phase 12d's child
         nccl_rank(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--fsm-step"]:        # phase 9f alone
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        with torch.no_grad():
+            fsm_step_timing(torch.device("cuda:0"), card)
         return
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -3859,9 +4131,10 @@ def main() -> None:
     sic_python_tracker(base_config(), dev)
     sic_north_star(iq, singles, ns_pdus, ns_packets, dev, card, launches)
 
-    # Phase 9: the FSM receive path (launches none of the nine kernels).
+    # Phase 9: the FSM receive path (none of the nine kernels; the demod
+    # machine's step kernels, fsm_win, fsm_sfd and fsm_update).
     with torch.no_grad():
-        fsm_phase(iq_dev, singles, dev, card)
+        fsm_phase(iq_dev, singles, dev, card, report, launches)
     del iq_dev
     torch.cuda.empty_cache()
 

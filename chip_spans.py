@@ -72,7 +72,8 @@ def feed_row(records: list) -> dict:
         "replays": spans.get("lora.fsm.replay", {}).get("n", 0),
         "idle_pct": tot["idle_pct"],
         "per_sf": {k: v for k, v in counts.items()
-                   if k.startswith(("events.", "lanes.", "replays."))},
+                   if k.startswith(("events.", "lanes.", "replays.",
+                                    "fsm_kernel_steps."))},
         "idle_ms": dict(sorted(tot["idle_ms"].items(),
                                key=lambda kv: -kv[1])),
         "gaps_ms": tot["gaps_ms"],

@@ -213,6 +213,8 @@ class TriggeredReceiver:
             rec.count("events", len(events), sf)
             rec.count("lanes", lanes, sf)
             rec.count("replays", demod.loops[lanes].steps // STEPS, sf)
+            rec.count("fsm_kernel_steps", demod.loops[lanes].kernel_steps,
+                      sf)
             syms, lens, pos, cnt, dropped, snr = (_fetch(rec, x, sf)
                                                   for x in outs)
             self.dropped_packets += int(np.sum(dropped))

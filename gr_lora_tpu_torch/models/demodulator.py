@@ -9,7 +9,10 @@ takes the lanes' windows in one gather per data dependency and transforms
 them with one ``ops/dft.ZoomDft`` call per dechirp direction (the "down"
 plan on the window at ``ptr``; the "up" plan on it and on the CFO window);
 ``sfd_compute``, ``parse`` and ``emit`` are computed for every lane and
-selected, as vmap computes both sides of a ``lax.cond``.
+selected, as vmap computes both sides of a ``lax.cond``.  That plain
+``body`` runs on the CPU; on the card a loop steps through
+``ops/fsm_step.FsmStep``, the same step as three hand-written kernels
+around the same two FFTs.
 
 States: 0 RESET, 1 PREFILL, 2 DETECT_PREAMBLE, 3 SFD_SYNC, 4 READ_HEADER,
 5 READ_PAYLOAD, 6 OUT (reference enum: include/lora/demod.h:41-49).
@@ -21,7 +24,7 @@ an f32 FFT, where the JAX package's is a matmul at ``cfg.precision``.
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +37,7 @@ from ..device import DEFAULT as DEFAULT_DEVICE
 from ..device import resolve as resolve_device
 from ..ops.cplx import cmag, to_ri
 from ..ops.dechirp import band_peak, device_plan
+from ..ops.fsm_step import FsmStep
 from .fsm_loop import BUILT_CACHE, StepLoop, lane_mask, offsets, windows
 
 _RESET, _PREFILL, _DETECT, _SFD, _HEADER, _PAYLOAD, _OUT = range(7)
@@ -152,10 +156,14 @@ def _parse_header(comp8, cfg: LoraConfig):
     cr = nib[..., 2] >> 1
     cks = (nib[..., 3] << 4) | nib[..., 4]
     valid = cks == _header_checksum(plen, nib[..., 2] & 0xF)
-    # Packet symbol count (demod_impl.cc:250; explicit header => -5*!h == 0).
+    # Packet symbol count (demod_impl.cc:250; explicit header => -5*!h == 0):
+    # ceil((2 plen - sf + 7 + 4 crc) / denom) as an integer division, exact
+    # on every device (the card divides a tensor by a Python number as a
+    # product with its f32 reciprocal, whose ceil can be one too many).
     denom = sf - 2 * int(cfg.ldr)
-    tmp = (2.0 * plen - sf + 7 + 4.0 * crc) / denom
-    psl = 8 + torch.clamp((4 + cr) * torch.ceil(tmp).to(torch.int32), min=0)
+    num = 2 * plen - sf + 7 + 4 * crc
+    blocks = -torch.div(-num, denom, rounding_mode="floor")
+    psl = 8 + torch.clamp((4 + cr) * blocks, min=0)
     return valid, plen, cr, crc, psl.to(torch.int32)
 
 
@@ -208,9 +216,11 @@ def max_packet_symbols(cfg: LoraConfig) -> int:
 @lru_cache(maxsize=None)
 def _machine(cfg: LoraConfig, max_packets: int):
     """The demod FSM transition function, shared by the whole-buffer and
-    streaming runs.  Returns (body, init_state):
+    streaming runs.  Returns (body, init_state, kernel):
     ``body(iq [L, T, 2], s, active [L]) -> s`` steps every lane and leaves
-    inactive lanes unchanged; ``init_state(lanes, base, ptr, device)``."""
+    inactive lanes unchanged; ``init_state(lanes, base, ptr, device)``;
+    ``kernel(loop)`` builds the same step as kernels for a StepLoop on
+    the card (``ops/fsm_step.FsmStep``)."""
     n = cfg.num_samples
     k = cfg.bin_size
     fac = cfg.fft_factor
@@ -368,7 +378,7 @@ def _machine(cfg: LoraConfig, max_packets: int):
             out_snr=out_snr, out_cnt=out_cnt,
             it=s.it + active.to(torch.int32))
 
-    return body, init_state
+    return body, init_state, partial(FsmStep, cfg, max_packets)
 
 
 def _outputs(final: _State, mp: int):
@@ -416,7 +426,8 @@ class Demod:
         self.num_samples_total = num_samples_total
         self.max_packets = max_packets
         self.device = device
-        self.body, self.init_state = self.machine(cfg, max_packets)
+        self.body, self.init_state, self.kernel = self.machine(
+            cfg, max_packets)
         self.pad_front = self.PAD_FRONT * n
         self.buf_len = self.pad_front + num_samples_total + self.PAD_BACK * n
         self.max_iters = self.ITERS_PER_SYMBOL * (self.buf_len // n) + 64
@@ -427,7 +438,7 @@ class Demod:
                                self.device)
         return StepLoop(self.body, init, self.buf_len,
                         self.REACH * self.cfg.num_samples, self.max_iters,
-                        graphed)
+                        graphed, self.kernel)
 
     def run(self, loop: StepLoop, iq: torch.Tensor):
         """Fill ``loop``'s buffer with iq [lanes, T, 2] and run it from
@@ -478,14 +489,14 @@ class Stream:
     its ``init``; models/weak.py's streamer too): the state of every lane
     carried from block to block, one ``StepLoop`` per lane count.
 
-    ``machine`` is (body, init_state); ``outputs(final, mp)`` the block's
-    outputs, ``fresh(s, mp)`` the per-block reset; ``reanchor`` the
-    (field, sign) pairs shifted by ``block_len`` after each block."""
+    ``machine`` is (body, init_state, kernel); ``outputs(final, mp)`` the
+    block's outputs, ``fresh(s, mp)`` the per-block reset; ``reanchor``
+    the (field, sign) pairs shifted by ``block_len`` after each block."""
 
     def __init__(self, machine, block_len: int, max_packets: int,
                  device: torch.device, tail_len: int, reach: int,
                  max_iters: int, outputs, fresh, reanchor):
-        self.body, self.init_state = machine
+        self.body, self.init_state, self.kernel = machine
         self.block_len, self.mp = block_len, max_packets
         self.device = device
         self.tail_len = tail_len
@@ -497,7 +508,7 @@ class Stream:
 
     def make_loop(self, lanes: int, graphed: bool | None = None) -> StepLoop:
         return StepLoop(self.body, self.init(lanes)[0], self.buf_len,
-                        self.reach, self.max_iters, graphed)
+                        self.reach, self.max_iters, graphed, self.kernel)
 
     def step(self, carry, block):
         """``step(carry, block [L, block_len, 2]) -> (carry, outs)``: outs

@@ -21,6 +21,11 @@ device; a loop built with ``graphed=False`` on the card (the eager timing
 in chip_smoke.py, the card tests) runs the very same steps launch by
 launch.
 
+A machine may bring its step as hand-written kernels (``kernel``: the
+demod machine's ``ops/fsm_step.FsmStep``).  A loop on the card then steps
+through them, in place on its state, inside the same graphs; the plain
+``body`` runs on the CPU (and wherever a test calls it).
+
 While a receiver's recorder is on (gr_lora_tpu_torch/trace.py), ``run``
 records each replay (``lora.fsm.replay``, a device span) and each host
 check (``lora.fsm.check``) into the call that is running.
@@ -79,7 +84,8 @@ class StepLoop:
     """
 
     def __init__(self, body: Callable, init: NamedTuple, buf_len: int,
-                 reach: int, max_iters: int, graphed: bool | None = None):
+                 reach: int, max_iters: int, graphed: bool | None = None,
+                 kernel: Callable | None = None):
         device = init.ptr.device
         self.body = body
         self.buf_len = buf_len
@@ -91,11 +97,24 @@ class StepLoop:
         self.graph = None
         #: Steps the last ``run`` took (a multiple of STEPS).
         self.steps = 0
+        #: On the card, ``kernel(loop)``: one in-place step of every lane
+        #: through the machine's hand-written kernels; else None.
+        self.kernel = kernel(self) if kernel is not None \
+            and device.type == "cuda" else None
+
+    @property
+    def kernel_steps(self) -> int:
+        """Steps the last ``run`` took through the kernels."""
+        return self.steps if self.kernel is not None else 0
 
     def active(self, s) -> torch.Tensor:
         return (s.ptr + self.reach <= self.buf_len) & (s.it < self.max_iters)
 
     def _steps(self) -> None:
+        if self.kernel is not None:
+            for _ in range(STEPS):
+                self.kernel()
+            return
         s = self.state
         for _ in range(STEPS):
             s = self.body(self.iq, s, self.active(s))
@@ -117,14 +136,21 @@ class StepLoop:
         torch.cuda.current_stream(self.iq.device).wait_stream(side)
         self._load(start)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             self._steps()
         self.graph = graph
 
     def run(self, state):
         """Load ``state``, step until no lane is active, return the final
         state (tensors of their own, so the next pass may reuse the
-        static ones)."""
+        static ones).  A loop on the card captures and replays on its
+        own card, whichever card is current."""
+        if self.iq.is_cuda:
+            with torch.cuda.device(self.iq.device):
+                return self._run(state)
+        return self._run(state)
+
+    def _run(self, state):
         rec = trace.current()
         self._load(state)
         if self.graphed and self.graph is None:

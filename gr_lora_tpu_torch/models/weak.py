@@ -149,8 +149,9 @@ def _dynamic_compensation(symbols, count, cfg: LoraConfig):
 @lru_cache(maxsize=None)
 def _weak_machine(cfg: LoraConfig, max_packets: int):
     """The weak FSM transition function, shared by the whole-buffer and
-    streaming runs.  Returns (body, init_state) as
-    models/demodulator._machine does."""
+    streaming runs.  Returns (body, init_state, kernel) as
+    models/demodulator._machine does; no kernel: the plain body runs on
+    the card too."""
     n = cfg.num_samples
     k = cfg.bin_size
     fac = cfg.fft_factor
@@ -272,7 +273,7 @@ def _weak_machine(cfg: LoraConfig, max_packets: int):
             iter_cnt=iter_cnt, out_syms=out_syms, out_len=out_len,
             out_cnt=out_cnt, it=s.it + active.to(torch.int32))
 
-    return body, init_state
+    return body, init_state, None
 
 
 def _outputs(final: _State, mp: int):

@@ -58,6 +58,9 @@ SIGNATURES = {
     "grl_overlap_probe": [_P] * 6 + [_I] * 7 + [_P],
     "grl_device_tracker": [_P, _P, _F] + [_P] * 5,
     "grl_device_tracker_global": [_P, _P, _F] + [_P] * 5,
+    "grl_fsm_win": [_P, _P],
+    "grl_fsm_sfd": [_P, _P],
+    "grl_fsm_update": [_P, _P],
 }
 
 _lock = threading.Lock()

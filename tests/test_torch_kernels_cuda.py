@@ -12,9 +12,13 @@ dense front end and peak_topm), K3 / K1 and K6 at p 1 (hop 16 samples),
 K4b / K4 at every hop that is no multiple of 32 samples (8, 16, 48; their
 chunk walk), and on ragged frame counts.  K1's, K2's and K4's fused searches keep
 their peak allocation below one dense [lanes, hops, K] f32 array.  The
-FSM device loop (models/fsm_loop), which has no kernel of its own: its
+demod FSM's step kernels (csrc/fsm_step.cu): after every STEPS steps
+the whole state equals the plain body's run on the card on the same
+buffers, SF7-12 x ABS / PHASE / B x explicit / implicit header; a step
+launches at most ten kernels.  The FSM device loop (models/fsm_loop): its
 replayed CUDA graph leaves every lane's state equal to the same steps run
-launch by launch, for both machines.  The RX front end, which has no
+launch by launch, for both machines (the demod machine's through the
+kernels, inside the graph too).  The RX front end, which has no
 kernel either: channelize and fir_filter run in full f32 whatever the
 TF32 flags, channelize's phase holds float64 precision at a large sample
 offset, and the streaming channelizer equals one whole call on the card.
@@ -661,8 +665,9 @@ def test_gateway_sic_envelope_point_on_card(dev):
 
 
 # ---------------------------------------------------------------------------
-# The FSM device loop (models/fsm_loop): no kernel of its own, but the
-# replayed CUDA graph must equal the same steps run launch by launch.
+# The FSM device loop (models/fsm_loop) and the demod machine's step
+# kernels (csrc/fsm_step.cu): the kernels equal the plain body on the card,
+# and the replayed CUDA graph equals the same steps run launch by launch.
 # ---------------------------------------------------------------------------
 
 def _fsm_fixture(machine):
@@ -707,6 +712,9 @@ def test_fsm_graph_equals_eager_steps(dev, machine):
     x = torch.from_numpy(iq).to(dev)
     graphed, eager = fn.make_loop(lanes), fn.make_loop(lanes, graphed=False)
     assert graphed.graphed and not eager.graphed
+    # The demod machine steps through its kernels, in the graph too.
+    assert (graphed.kernel is not None) == (eager.kernel is not None) \
+        == (machine == "demod")
     outs = fn.run(graphed, x)
     final = [s.clone() for s in graphed.state]
     assert fn.run(eager, x) is not None
@@ -736,6 +744,8 @@ def test_streaming_demod_on_card_equals_cpu(dev):
     cfg = LoraConfig(sf=7, cr=2, crc=True, explicit_header=False,
                      payload_len=4, p=2, fft_factor=2)
     n = cfg.num_samples
+    loops = StreamingDemodulator(cfg, block_len=8 * n,
+                                 device=dev)._step.__self__.loops
     pkt = to_ri(modulate(encode(bytes([0xCA, 0xFE, 0x12, 0x34]), cfg), cfg))
     iq = np.concatenate([pkt, np.zeros((37 * n + 11, 2), np.float32), pkt])
     runs = []
@@ -751,6 +761,7 @@ def test_streaming_demod_on_card_equals_cpu(dev):
                      ratios + sd.snr_ratios))
     assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 2
     np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=1e-4)
+    assert loops and all(loop.kernel is not None for loop in loops.values())
     card = StreamingDemodulator(cfg, block_len=8 * n, device=dev)
     cut = len(pkt) + 37 * n + len(pkt) // 2
     before = card.feed(iq[:cut])
@@ -758,6 +769,192 @@ def test_streaming_demod_on_card_equals_cpu(dev):
     cpu.load_state_dict(card.state_dict())
     after = cpu.feed(iq[cut:]) + cpu.flush()
     assert [(p, s.tolist()) for p, s in before + after] == runs[1][0]
+
+
+_MODES = {"abs": 0, "phase": 1, "b": 2}
+
+
+def _fsm_kernel_case(dev, sf, mode, explicit):
+    """(config, plain loop, kernel loop) of the demod machine on the card:
+    test_torch_fsm_kernel_source's lanes (two packets, a preamble alone,
+    silence), both loops loaded with the initial state."""
+    from gr_lora_tpu_torch.config import PeakSearch
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from test_torch_fsm_kernel_source import _lanes
+
+    cfg = LoraConfig(sf=sf, cr=1, crc=True, ldr=sf >= 11,
+                     explicit_header=explicit, payload_len=3, p=2,
+                     fft_factor=8, peak_search=PeakSearch(_MODES[mode]))
+    x, total = _lanes(cfg, bytes([sf, 0x5A, 0xC3]))
+    fn = demod_fn(cfg, total, 2, device=dev)
+    lanes, pad = x.shape[0], fn.pad_front
+    plain = fn.make_loop(lanes, graphed=False)
+    kern = fn.make_loop(lanes, graphed=False)
+    assert kern.kernel is not None
+    for loop in (plain, kern):
+        loop.iq[:, pad:pad + total].copy_(x.to(dev))
+        loop._load(fn.init_state(lanes, -pad, pad, dev))
+    return cfg, plain, kern
+
+
+@pytest.mark.parametrize("explicit", [True, False],
+                         ids=["explicit", "implicit"])
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("sf", [7, 8, 9, 10, 11, 12])
+def test_fsm_kernel_step_equals_plain_body(dev, sf, mode, explicit):
+    """The demod machine's step through csrc/fsm_step.cu against its plain
+    body run directly on the card, from the same state on the same
+    buffers, LDR on at SF11-12: the first step's dechirped windows equal
+    ATen's product bit for bit; after every STEPS steps every integer
+    field, syms and cfo equal the plain steps', snr and out_snr within
+    1e-6; the packets are emitted."""
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS, windows
+    from gr_lora_tpu_torch.ops.cplx import as_complex
+    from gr_lora_tpu_torch.ops.dechirp import device_plan
+
+    cfg, plain, kern = _fsm_kernel_case(dev, sf, mode, explicit)
+    n = cfg.num_samples
+    win = as_complex(windows(plain.iq, plain.state.ptr[:, None], n)[:, 0])
+    up = device_plan("up", sf, cfg.p, cfg.fft_factor, dev).mod
+    kern.kernel()
+    assert torch.equal(kern.kernel.up_in[:, 0, :n],
+                       win * as_complex(up)[0])
+    kern._load(plain.state)
+    body = plain.body
+    while bool(plain.active(plain.state).any()):
+        s = plain.state
+        for _ in range(STEPS):
+            s = body(plain.iq, s, plain.active(s))
+        plain._load(s)
+        for _ in range(STEPS):
+            kern.kernel()
+        for name, a in plain.state._asdict().items():
+            b = getattr(kern.state, name)
+            if name in ("snr", "out_snr"):
+                torch.testing.assert_close(b, a, rtol=1e-6, atol=0.0,
+                                           msg=name)
+            else:
+                assert torch.equal(a, b), name
+    cnt = plain.state.out_cnt.tolist()
+    assert cnt[:2] == [1, 1] and cnt[3] == 0
+
+
+def test_parse_header_on_card_equals_cpu(dev):
+    """The explicit-header parse of every length, code rate and CRC flag at
+    SF7-12, LDR on and off, on the card equals the CPU's: the symbol count
+    ceil((2 len - sf + 7 + 4 crc) / (sf - 2 ldr)) is exact on both."""
+    from gr_lora_tpu_torch.core.header import calc_sym_num
+    from gr_lora_tpu_torch.models.demodulator import _parse_header
+
+    rows = [(ln, cr, crc) for ln in range(256) for cr in range(1, 5)
+            for crc in (0, 1)]
+    for sf in range(7, 13):
+        cfg = LoraConfig(sf=sf, cr=1, explicit_header=True)
+        comp8 = torch.from_numpy(np.stack([np.asarray(encode(
+            bytes(ln), cfg.replace(cr=cr, crc=bool(crc)))[:8], np.int32)
+            for ln, cr, crc in rows]))
+        for ldr in (False, True):
+            c = cfg.replace(ldr=ldr)
+            cpu = _parse_header(comp8, c)
+            card = _parse_header(comp8.to(dev), c)
+            for a, b in zip(cpu, card):
+                assert torch.equal(a, b.cpu())
+            assert bool(cpu[0].all())
+            assert cpu[4].tolist() == [calc_sym_num(
+                ln, sf=sf, cr=cr, crc=bool(crc), ldr=ldr,
+                explicit_header=True) for ln, cr, crc in rows]
+
+
+def test_fsm_kernel_counts_launches_and_steps(dev):
+    """One eager step through the kernels counts three launches and runs
+    at most ten kernels on the card (torch.profiler): the three and
+    cuFFT's; the
+    triggered receiver's recorder counts fsm_kernel_steps equal to its
+    replays' steps at every SF."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gr_lora_tpu_torch.dist import TriggeredReceiver
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS
+    from gr_lora_tpu_torch.ops import fsm_step
+    from test_torch_trace import BASE, _feed
+
+    _, _, kern = _fsm_kernel_case(dev, 8, "abs", True)
+    kern.kernel()                       # cuFFT's plans made
+    before = fsm_step.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern.kernel()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and "memcpy" not in e.name().lower()
+               and "memset" not in e.name().lower()]
+    assert fsm_step.launches - before == 3
+    assert 5 <= len(kernels) <= 10, [e.name() for e in kernels]
+    assert sum("fsm_" in e.name() for e in kernels) == 3
+    rx = TriggeredReceiver(BASE, sfs=(7, 8), device=dev)
+    rx.recorder.on = True
+    rx(torch.from_numpy(_feed()).pin_memory())
+    (rec,) = rx.recorder.records()
+    counts = {(c["name"], c["sf"]): c["value"] for c in rec["counters"]}
+    for sf in (7, 8):
+        assert counts[("fsm_kernel_steps", sf)] \
+            == counts[("replays", sf)] * STEPS > 0
+
+
+def test_fsm_kernel_launches_count_no_capture_or_replay(dev):
+    """A graphed loop's first run counts its warm-up's eager steps, three
+    launches a step, and nothing for the capture; its replays count
+    none."""
+    from gr_lora_tpu_torch.models.fsm_loop import STEPS
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from gr_lora_tpu_torch.ops import fsm_step
+    from test_torch_fsm_kernel_source import _lanes
+
+    cfg = LoraConfig(sf=7, cr=1, crc=True, explicit_header=True,
+                     payload_len=3, p=2, fft_factor=8)
+    x, total = _lanes(cfg, bytes([7, 0x5A, 0xC3]))
+    fn = demod_fn(cfg, total, 2, device=dev)
+    loop = fn.make_loop(x.shape[0])
+    before = fsm_step.launches
+    fn.run(loop, x.to(dev))
+    assert loop.graph is not None
+    assert fsm_step.launches - before == 3 * STEPS
+    before = fsm_step.launches
+    fn.run(loop, x.to(dev))
+    assert fsm_step.launches == before and loop.kernel_steps > 0
+
+
+def test_fsm_kernels_on_a_card_that_is_not_current(dev):
+    """A demod loop on the second card while the first is current: the
+    kernel step launches on its own card, graphed and eager, and gives
+    what the same loop gives on the first card, and the CPU's packets."""
+    from gr_lora_tpu_torch.models.demodulator import demod_fn
+    from test_torch_fsm_kernel_source import _lanes
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cfg = LoraConfig(sf=7, cr=1, crc=True, explicit_header=True,
+                     payload_len=3, p=2, fft_factor=8)
+    x, total = _lanes(cfg, bytes([7, 0x5A, 0xC3]))
+    cpu = demod_fn(cfg, total, 2, device="cpu")(x)
+    first = demod_fn(cfg, total, 2, device=dev)(x.to(dev))
+    other = torch.device("cuda:1")
+    with torch.cuda.device(dev):
+        fn = demod_fn(cfg, total, 2, device=other)
+        for graphed in (True, False):
+            loop = fn.make_loop(x.shape[0], graphed=graphed)
+            assert loop.kernel is not None and loop.graphed == graphed
+            got = fn.run(loop, x.to(other))
+            assert loop.kernel_steps > 0
+            for a, b, c in zip(first, got, cpu):
+                assert b.device == other and torch.equal(a.cpu(), b.cpu())
+                if c.is_floating_point():
+                    np.testing.assert_allclose(b.cpu(), c, rtol=1e-4)
+                else:
+                    assert torch.equal(b.cpu(), c)
+        assert torch.cuda.current_device() == dev.index
 
 
 def test_recorder_on_card(dev):

@@ -137,6 +137,8 @@ def test_counters_agree_with_the_receiver(runs):
         loop = demod_fn(cfg, min(scan_window(cfg), T), 2,
                         "cpu").loops[lanes]
         assert counts[("replays", sf)] * STEPS == loop.steps
+        # No step of a CPU loop runs through the card's kernels.
+        assert counts[("fsm_kernel_steps", sf)] == loop.kernel_steps == 0
     assert {sf for (n, sf) in counts if n == "lanes"} == {7, 8}
 
 
